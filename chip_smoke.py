@@ -1,18 +1,35 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one CUDA card and check it.
+"""Drive the PyTorch port's paths on one CUDA card and check them.
 
 Run from the root of a checkout, with no arguments::
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernel from ``neilpy_tpu_torch/csrc`` (nvcc,
-into the git-ignored ``build/``), holds the kernel against its plain
-PyTorch version on the card, runs the README's main path at the
-reference scale (an 8192 x 8192 DEM written as a GeoTIFF, read back with
-``imread``, classified by ``geomorphons`` at lookup 50, the classes
-written with ``imwrite``), checks the classes against the plain version
-and the f64 numpy oracle of ``tests/reference_impls.py``, and times the
-kernel and the plain version with CUDA events.
+It builds the port's CUDA kernels from ``neilpy_tpu_torch/csrc`` (nvcc,
+into the git-ignored ``build/``) and holds each against its plain
+PyTorch version on the card: K1 (openness counts), K2 (the fused
+openness / skyview / ternary reduction) and K3 (the per-direction
+extrema planes).  It checks the port against the f64 numpy oracles of
+``tests/reference_impls.py``, then drives two paths at the reference
+scale, an 8192 x 8192 DEM written as a GeoTIFF and read back with
+``imread``, at lookup 50:
+
+- ``main_path``: ``geomorphons`` (exact, enhance, fast) -> ``imwrite``
+  of the classes (K1);
+- ``openness_path``: ``openness_pair`` -> ``skyview_factor`` ->
+  ``ternary_pattern_from_openness(lowest=True)`` ->
+  ``openness(neighbors=[1, 5])`` ->
+  ``geomorphons2(use_negative_openness=False, outfile=...)`` ->
+  ``imwrite`` of the positive openness (K2 x 3, K3 x 2).
+
+Each path runs with every launch count set to 0 just before it and read
+just after, and every output is compared with its plain version at full
+size.  Last, it times each kernel and its plain version with CUDA
+events.
+
+Tolerances, kernel against plain version: counts, classes, extrema and
+ternary codes exact; openness within 5e-5 degrees, with +inf (a pixel
+that saw nothing) at the same pixels; skyview factor within 1e-6.
 
 Every phase prints one JSON line.  The lines before the last are the
 card's name and power limit as nvidia-smi reports them, then the kernel
@@ -36,6 +53,10 @@ HERE = Path(__file__).resolve().parent
 MAIN_SHAPE = (8192, 8192)      # bench.py SCALE_SHAPE: ~1e8 px, Poland EU-DEM scale
 MAIN_LOOKUP = 50
 TIMED_RUNS = 5
+OPENNESS_TOL = 5e-5            # degrees: atanf vs torch.atan, per direction
+SVF_TOL = 1e-6
+ORACLE_OPENNESS_TOL = 2e-4     # degrees, as tests/test_visibility.py
+ORACLE_SVF_TOL = 2e-6          # as tests/test_visibility.py
 
 
 def emit(**record):
@@ -62,8 +83,52 @@ def bench_input(shape):
     return np.cumsum(Z, axis=0) + np.cumsum(Z, axis=1)
 
 
+def kernel_fns(cuda_scan):
+    """The kernels' wrappers, whose ``launches`` the paths count."""
+    return {"K1": cuda_scan.openness_counts_cuda,
+            "K2": cuda_scan.openness_reduced_cuda,
+            "K3": cuda_scan.directional_extrema_cuda}
+
+
+def reset_counts(cuda_scan):
+    for fn in kernel_fns(cuda_scan).values():
+        fn.launches = 0
+
+
+def read_counts(cuda_scan):
+    return {k: fn.launches for k, fn in kernel_fns(cuda_scan).items()}
+
+
+def float_err(got, want, tol, what):
+    """Max |got - want| over finite values; +inf at the same pixels, no
+    NaN anywhere; fails above ``tol``."""
+    check(not torch.isnan(got).any() and not torch.isnan(want).any(),
+          f"{what}: NaN in the output")
+    inf = torch.isinf(got)
+    check(torch.equal(inf, torch.isinf(want)),
+          f"{what}: +inf (unseen) at other pixels")
+    err = float((got[~inf] - want[~inf]).abs().max()) if (~inf).any() else 0.
+    check(err <= tol, f"{what}: max |diff| {err} above {tol}")
+    return err
+
+
+def reduced_err(cuda_scan, mode, got, want, what):
+    """K2's outputs against the plain version's, in the units the
+    tolerances are stated in (openness in degrees)."""
+    if mode == "ternary":
+        err = int((got[0].int() - want[0].int()).abs().max())
+        check(err == 0, f"{what}: ternary codes differ (max {err})")
+        return err
+    if mode == "openness":
+        got = cuda_scan.openness_degrees(*got)
+        want = cuda_scan.openness_degrees(*want)
+    tol = OPENNESS_TOL if mode == "openness" else SVF_TOL
+    return max(float_err(g, w, tol, what) for g, w in zip(got, want))
+
+
 def kernel_vs_plain(cuda_scan, dev):
-    """Phase 3: kernel == plain version, exactly, on every case."""
+    """Phase 3: each kernel against its plain version on every case: K1
+    and K3 exactly, K2 at the stated tolerances."""
     from neilpy_tpu_torch.ops.visibility import classes_from_counts
     r = np.random.default_rng(7)
     small = r.normal(size=(100, 140)).cumsum(0).cumsum(1).astype(np.float32)
@@ -71,6 +136,8 @@ def kernel_vs_plain(cuda_scan, dev):
     big[300:340, 500:620] = np.nan           # nodata hole
     big[700:712, :] = np.nan                 # all-NaN row band
     tiny = r.normal(size=(24, 32)).cumsum(0).astype(np.float32)
+    isolated = np.full((32, 140), np.nan, dtype=np.float32)
+    isolated[16, 70] = 5.0                   # every ray sees only NaN
     cases = [("100x140", small, lk, t, f)
              for lk in (1, 7, 50) for t in (0.0, 1.0, 5.0)
              for f in (False, True)]
@@ -94,16 +161,62 @@ def kernel_vs_plain(cuda_scan, dev):
     plain = classes_from_counts(*cuda_scan.openness_counts_torch(
         Zd, cellsize=2.0, lookup_pixels=50))
     check(torch.equal(G, plain), "geomorphons_cuda != plain classes")
-    emit(phase="kernel_vs_plain", cases=len(cases), max_abs_err=worst)
-    return worst
+    emit(phase="kernel_vs_plain", kernel="K1", cases=len(cases),
+         max_abs_err=worst)
+
+    rasters = [("100x140", small, lk) for lk in (1, 7, 50)]
+    rasters += [("1000x1537+nan", big, lk) for lk in (1, 7, 50)]
+    rasters += [("24x32", tiny, 100), ("32x140 isolated", isolated, 3)]
+    k2_variants = [("openness", {}), ("openness", {"fast": True}),
+                   ("svf", {}),
+                   ("ternary", {"threshold_angle": 0.0}),
+                   ("ternary", {"threshold_angle": 1.0}),
+                   ("ternary", {"threshold_angle": 1.0, "neg_mode": False})]
+    k2_err = {"openness": 0.0, "svf": 0.0, "ternary": 0}
+    k3_err = 0.0
+    n2 = n3 = 0
+    for name, Z, lk in rasters:
+        Zd = torch.from_numpy(Z).to(dev)
+        for mode, extra in k2_variants:
+            kw = dict(cellsize=2.0, lookup_pixels=lk, **extra)
+            k = cuda_scan.openness_reduced_cuda(Zd, mode, **kw)
+            p = cuda_scan.openness_reduced_torch(Zd, mode, **kw)
+            torch.cuda.synchronize()
+            k2_err[mode] = max(k2_err[mode], reduced_err(
+                cuda_scan, mode, k, p, f"K2 {mode} {extra} on {name} "
+                                       f"lookup={lk}"))
+            n2 += 1
+        for f in (False, True):
+            kw = dict(cellsize=2.0, lookup_pixels=lk, fast=f)
+            k = cuda_scan.directional_extrema_cuda(Zd, **kw)
+            p = cuda_scan.directional_extrema_torch(Zd, **kw)
+            torch.cuda.synchronize()
+            for a, b in zip(k, p):
+                what = f"K3 extrema on {name} lookup={lk} fast={f}"
+                check(torch.equal(a, b), f"{what}: kernel != plain")
+                k3_err = max(k3_err, float_err(a, b, 0.0, what))
+            n3 += 1
+    pos, neg = cuda_scan.openness_cuda(torch.from_numpy(isolated).to(dev),
+                                       lookup_pixels=3)
+    check(bool(torch.isposinf(pos[16, 70])) and
+          bool(torch.isposinf(neg[16, 70])),
+          "isolated pixel: openness is not +inf")
+    emit(phase="kernel_vs_plain", kernel="K2", cases=n2,
+         max_abs_err_by_mode=k2_err, tolerance_by_mode={
+             "openness_deg": OPENNESS_TOL, "svf": SVF_TOL, "ternary": 0})
+    emit(phase="kernel_vs_plain", kernel="K3", cases=n3, max_abs_err=k3_err)
+    return {"K1": worst, "K2": max(k2_err.values()), "K3": k3_err}
 
 
 def oracle_check(ntt, dev):
-    """The repo's own oracles on the card: the J&S micro-morphologies
-    and the f64 numpy geomorphon loop (classes may differ from it only
-    at f32 decision ties, margin < 2e-3 deg)."""
+    """The repo's own oracles on the card: the J&S micro-morphologies,
+    the f64 numpy geomorphon loop (classes may differ from it only at
+    f32 decision ties, margin < 2e-3 deg), and the f64 numpy openness
+    and skyview loops (within 2e-4 deg and 2e-6, tests/test_visibility.py's
+    tolerances)."""
     sys.path.insert(0, str(HERE))
-    from tests.reference_impls import np_geomorphons
+    from tests.reference_impls import (np_geomorphons, np_openness,
+                                       np_skyview_factor)
     micro = [([[1, 1, 1], [1, 2, 1], [1, 1, 1]], 2),
              ([[0, 0, 0], [2, 1, 2], [2, 2, 2]], 7),
              ([[1, 1, 1], [1, 0, 1], [1, 1, 1]], 10),
@@ -128,21 +241,37 @@ def oracle_check(ntt, dev):
         check(not diff.any() or margin[diff].max() < 2e-3,
               f"non-tie disagreement with the f64 oracle (enhance={enhance}"
               f", fast={fast})")
+    kw = dict(cellsize=10, lookup_pixels=50)
+    o_err = float(np.abs(ntt.openness(Z64, device=dev, **kw).cpu().numpy()
+                         - np_openness(Z64, **kw)).max())
+    check(o_err <= ORACLE_OPENNESS_TOL,
+          f"openness vs the f64 oracle: {o_err} above {ORACLE_OPENNESS_TOL}")
+    s_err = float(np.abs(ntt.skyview_factor(Z64, device=dev, **kw).cpu()
+                         .numpy() - np_skyview_factor(Z64, **kw)).max())
+    check(s_err <= ORACLE_SVF_TOL,
+          f"skyview vs the f64 oracle: {s_err} above {ORACLE_SVF_TOL}")
     emit(phase="oracle", micro_morphologies=len(micro),
-         f64_oracle_tie_flips=flips)
+         f64_oracle_tie_flips=flips, openness_max_abs_err_deg=o_err,
+         openness_tol_deg=ORACLE_OPENNESS_TOL, skyview_max_abs_err=s_err,
+         skyview_tol=ORACLE_SVF_TOL)
 
 
-def main_path(ntt, cuda_scan, dev, tmp):
-    """Phase 4: GeoTIFF -> imread -> geomorphons -> imwrite at 8192^2."""
-    H, W = MAIN_SHAPE
+def write_dem(ntt, tmp):
+    """The reference-scale DEM as a GeoTIFF (set-up, not timed)."""
+    H, _ = MAIN_SHAPE
     Z = bench_input(MAIN_SHAPE)
     dem = str(Path(tmp) / "dem.tif")
-    out = str(Path(tmp) / "classes.tif")
     ntt.imwrite(dem, Z, {"transform": ntt.from_origin(0.0, 10.0 * H, 10, 10),
                          "crs": 32633, "nodata": None})
+    return Z, dem
+
+
+def main_path(ntt, cuda_scan, dev, tmp, Z, dem):
+    """Phase 4: GeoTIFF -> imread -> geomorphons -> imwrite at 8192^2."""
+    out = str(Path(tmp) / "classes.tif")
     torch.cuda.synchronize()
 
-    cuda_scan.openness_counts_cuda.launches = 0
+    reset_counts(cuda_scan)
     t0 = time.perf_counter()
     Zr, meta = ntt.imread(dem)
     kw = dict(cellsize=meta["cellsize"], lookup_pixels=MAIN_LOOKUP,
@@ -153,7 +282,8 @@ def main_path(ntt, cuda_scan, dev, tmp):
     ntt.imwrite(out, G, meta, colormap=ntt.geomorphon_cmap())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = cuda_scan.openness_counts_cuda.launches
+    counts = read_counts(cuda_scan)
+    launches = counts["K1"]
 
     check(launches == 4, f"main path launched the kernel {launches} times, "
                          "expected 4 (exact, enhance x2, fast)")
@@ -173,39 +303,140 @@ def main_path(ntt, cuda_scan, dev, tmp):
     check(np.array_equal(back, G.cpu().numpy()), "classes.tif read-back")
     hist = torch.bincount(G.flatten().long(), minlength=11)[1:].tolist()
     emit(phase="main_path", shape=list(MAIN_SHAPE), lookup=MAIN_LOOKUP,
-         launches=launches, wall_s=wall, class_histogram=hist)
+         launches=launches, launches_by_kernel=counts, wall_s=wall,
+         class_histogram=hist)
     return Zd, launches
 
 
-def timings(cuda_scan, Zd, card):
-    """Phase 5: median of CUDA-event times, kernel and plain in turns."""
-    H, W = Zd.shape
-    fns = {"kernel": cuda_scan.openness_counts_cuda,
-           "plain": cuda_scan.openness_counts_torch}
-    order = [("plain", False), ("kernel", False), ("kernel", True),
-             ("plain", True)]
-    times = {key: [] for key in order}
-    for key in order:  # warm-up
-        fns[key[0]](Zd, cellsize=10.0, lookup_pixels=MAIN_LOOKUP,
-                    threshold_angle=1.0, fast=key[1])
+def openness_path(ntt, cuda_scan, dev, tmp, Z, dem):
+    """Phase 5: GeoTIFF -> imread -> openness_pair -> skyview_factor ->
+    ternary codes (lowest) -> openness over neighbours 1 and 5 ->
+    geomorphons2 without negative openness (PNG + worldfile) -> imwrite
+    of the positive openness, at 8192^2, lookup 50."""
+    png = str(Path(tmp) / "geomorphons2.png")
+    out = str(Path(tmp) / "openness.tif")
     torch.cuda.synchronize()
-    for _ in range(TIMED_RUNS):
-        for key in order:
+
+    reset_counts(cuda_scan)
+    t0 = time.perf_counter()
+    Zr, meta = ntt.imread(dem)
+    Zd = torch.from_numpy(Zr).to(dev)
+    kw = dict(cellsize=meta["cellsize"], lookup_pixels=MAIN_LOOKUP)
+    pos, neg = ntt.openness_pair(Zd, **kw)
+    svf = ntt.skyview_factor(Zd, **kw)
+    codes = ntt.ternary_pattern_from_openness(Zd, lowest=True, **kw)
+    o15 = ntt.openness(Zd, neighbors=[1, 5], **kw)
+    G2 = ntt.geomorphons2(Zd, use_negative_openness=False, outfile=png,
+                          out_transform=meta["transform"], **kw)
+    ntt.imwrite(out, pos, meta)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts(cuda_scan)
+
+    check(counts["K2"] == 3 and counts["K3"] == 2 and counts["K1"] == 0,
+          f"openness path launched {counts}, expected K2 x 3 (pair, "
+          "skyview, ternary) and K3 x 2 (neighbours, geomorphons2)")
+    check(np.array_equal(Zr, Z), "GeoTIFF read-back differs from the DEM")
+    for name, t in (("pos", pos), ("neg", neg), ("svf", svf),
+                    ("openness[1,5]", o15)):
+        check(t.shape == MAIN_SHAPE and t.dtype == torch.float32
+              and t.is_cuda and bool(torch.isfinite(t).all()),
+              f"{name}: shape/dtype/device or a non-finite value")
+    check(float(pos.min()) >= 0 and float(pos.max()) <= 180
+          and float(neg.min()) >= 0 and float(neg.max()) <= 180,
+          "openness outside 0..180 degrees")
+    check(float(svf.min()) >= 0 and float(svf.max()) <= 1,
+          "skyview factor outside 0..1")
+    check(codes.dtype == torch.uint16 and int(codes.int().max()) <= 6560,
+          "ternary codes: dtype or range")
+    check(int(G2.min()) >= 1 and int(G2.max()) <= 10,
+          "geomorphons2 classes outside 1..10")
+
+    plain = dict(engine="torch", **kw)
+    errs = {}
+    pp, pn = ntt.openness_pair(Zd, **plain)
+    errs["openness_pair_deg"] = max(
+        float_err(pos, pp, OPENNESS_TOL, "openness_pair pos"),
+        float_err(neg, pn, OPENNESS_TOL, "openness_pair neg"))
+    del pp, pn
+    errs["skyview"] = float_err(svf, ntt.skyview_factor(Zd, **plain),
+                                SVF_TOL, "skyview_factor")
+    check(torch.equal(codes.int(), ntt.ternary_pattern_from_openness(
+        Zd, lowest=True, **plain).int()), "ternary codes != plain")
+    check(torch.equal(o15, ntt.openness(Zd, neighbors=[1, 5], **plain)),
+          "openness over neighbours 1, 5 != plain")
+    check(torch.equal(G2, ntt.geomorphons2(
+        Zd, use_negative_openness=False, **plain)), "geomorphons2 != plain")
+    from PIL import Image
+    with Image.open(png) as im:
+        check(np.array_equal(np.asarray(im), G2.cpu().numpy()),
+              "geomorphons2 PNG read-back")
+    check(Path(png[:-3] + "pgw").is_file(), "geomorphons2 worldfile")
+    back, _ = ntt.imread(out)
+    check(back.dtype == np.float32 and np.array_equal(back, pos.cpu().numpy()),
+          "openness.tif read-back")
+    emit(phase="openness_path", shape=list(MAIN_SHAPE), lookup=MAIN_LOOKUP,
+         launches_by_kernel=counts, wall_s=wall, max_abs_err=errs,
+         mean_openness_deg=float(pos.double().mean()),
+         mean_skyview=float(svf.double().mean()),
+         class_histogram=torch.bincount(G2.flatten().long(),
+                                        minlength=11)[1:].tolist())
+    return counts
+
+
+def time_turns(fns, call):
+    """CUDA-event ms of ``TIMED_RUNS`` runs of each ``fns[key]`` through
+    ``call``, in turns (plain, kernel, kernel, plain, ...) after one
+    warm-up each."""
+    keys = list(fns)
+    times = {k: [] for k in keys}
+    for key in keys:
+        call(fns[key])
+    torch.cuda.synchronize()
+    for rep in range(TIMED_RUNS):
+        for key in (keys if rep % 2 == 0 else keys[::-1]):
             start = torch.cuda.Event(enable_timing=True)
             stop = torch.cuda.Event(enable_timing=True)
             start.record()
-            fns[key[0]](Zd, cellsize=10.0, lookup_pixels=MAIN_LOOKUP,
-                        threshold_angle=1.0, fast=key[1])
+            call(fns[key])
             stop.record()
             stop.synchronize()
             times[key].append(start.elapsed_time(stop))
+    return times
+
+
+def timings(cuda_scan, Zd, card):
+    """Phase 6: median of CUDA-event times, kernel and plain in turns,
+    for K1 (both ladders), K2 (each mode) and K3."""
+    H, W = Zd.shape
+    base = dict(cellsize=10.0, lookup_pixels=MAIN_LOOKUP)
     res = {}
-    for (impl, fast), ts in times.items():
-        ms = statistics.median(ts)
-        res[(impl, fast)] = ms
-        emit(phase="timing", impl=impl, ladder="fast" if fast else "exact",
-             shape=[H, W], lookup=MAIN_LOOKUP, runs=ts, median_ms=ms,
-             mpix_per_s=H * W / ms / 1e3, card=card)
+
+    def record(kernel, label, times, **extra):
+        for impl, ts in times.items():
+            ms = statistics.median(ts)
+            res[(kernel, label, impl)] = ms
+            emit(phase="timing", kernel=kernel, impl=impl, **extra,
+                 shape=[H, W], lookup=MAIN_LOOKUP, runs=ts, median_ms=ms,
+                 mpix_per_s=H * W / ms / 1e3, card=card)
+
+    for fast in (False, True):
+        ladder = "fast" if fast else "exact"
+        record("K1", ladder, time_turns(
+            {"plain": cuda_scan.openness_counts_torch,
+             "kernel": cuda_scan.openness_counts_cuda},
+            lambda fn: fn(Zd, threshold_angle=1.0, fast=fast, **base)),
+            ladder=ladder)
+    for mode in ("openness", "svf", "ternary"):
+        record("K2", mode, time_turns(
+            {"plain": cuda_scan.openness_reduced_torch,
+             "kernel": cuda_scan.openness_reduced_cuda},
+            lambda fn: fn(Zd, mode, threshold_angle=1.0, **base)),
+            mode=mode, ladder="exact")
+    record("K3", "exact", time_turns(
+        {"plain": cuda_scan.directional_extrema_torch,
+         "kernel": cuda_scan.directional_extrema_cuda},
+        lambda fn: fn(Zd, **base)), ladder="exact")
     return res
 
 
@@ -241,20 +472,30 @@ def main():
     max_err = kernel_vs_plain(cuda_scan, dev)
     oracle_check(ntt, dev)
     with tempfile.TemporaryDirectory() as tmp:
-        Zd, launches = main_path(ntt, cuda_scan, dev, tmp)
+        Z, dem = write_dem(ntt, tmp)
+        Zd, k1_launches = main_path(ntt, cuda_scan, dev, tmp, Z, dem)
+        counts = openness_path(ntt, cuda_scan, dev, tmp, Z, dem)
     res = timings(cuda_scan, Zd, card)
 
-    print(card, flush=True)
-    print(json.dumps({"kernels": [{
-        "name": "openness_counts",
+    rows = [("K1", "openness_counts", "exact", 401, k1_launches),
+            ("K2", "openness_reduced", "openness", 856, counts["K2"]),
+            ("K3", "directional_extrema", "exact", 292, counts["K3"])]
+    kernels = [{
+        "name": name,
         "route": "cuda",
-        "source": "neilpy_tpu_torch/csrc/openness_counts.cu",
-        "replaces": "neilpy_tpu/ops/pallas_scan.py:401",
+        "source": f"neilpy_tpu_torch/csrc/{name}.cu",
+        "replaces": f"neilpy_tpu/ops/pallas_scan.py:{line}",
         "launches": launches,
-        "max_abs_err": max_err,
-        "ms": res[("kernel", False)],
-        "plain_ms": res[("plain", False)],
-    }]}), flush=True)
+        "max_abs_err": max_err[kid],
+        "ms": res[(kid, label, "kernel")],
+        "plain_ms": res[(kid, label, "plain")],
+    } for kid, name, label, line, launches in rows]
+    kernels[1]["ms_by_mode"] = {m: res[("K2", m, "kernel")]
+                                for m in ("openness", "svf", "ternary")}
+    kernels[1]["plain_ms_by_mode"] = {m: res[("K2", m, "plain")]
+                                      for m in ("openness", "svf", "ternary")}
+    print(card, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -2,19 +2,24 @@
 NVIDIA Hopper GPUs.
 
 It grows slice by slice beside the JAX package, which stays the
-reference each part is held against.  This slice is the README's main
-path, DEM -> geomorphon classes::
+reference each part is held against.  Ported so far: the README's main
+path, DEM -> geomorphon classes, and the rest of the openness family
+(openness, negative openness, skyview factor, ternary codes,
+geomorphons2)::
 
     import neilpy_tpu_torch as ntt
     Z, meta = ntt.imread("dem.tif")
     G = ntt.geomorphons(Z, cellsize=meta["cellsize"], lookup_pixels=50)
     ntt.imwrite("classes.tif", G, meta, colormap=ntt.geomorphon_cmap())
+    pos, neg = ntt.openness_pair(Z, cellsize=meta["cellsize"],
+                                 lookup_pixels=50)
+    ntt.imwrite("openness.tif", pos, meta)
 
-Numpy input goes to the CUDA device by default, where the openness
-counts run in a hand-written kernel (``csrc/openness_counts.cu``, built
-with nvcc at first use); ``device='cpu'`` runs the plain PyTorch
-version instead.  Names and arguments follow ``neilpy_tpu``.  The
-package imports neither ``jax`` nor ``neilpy_tpu``.
+Numpy input goes to the CUDA device by default, where the scan ladder
+runs in hand-written kernels (``csrc/*.cu``, built with nvcc at first
+use); ``device='cpu'`` runs their plain PyTorch versions instead.
+Names and arguments follow ``neilpy_tpu``.  The package imports neither
+``jax`` nor ``neilpy_tpu``.
 """
 
 __version__ = "0.1.0"
@@ -34,5 +39,8 @@ from .io.worldfile import write_worldfile
 from .io.png import write_paletted_png
 
 # ----- visibility / geomorphons --------------------------------------
-from .ops.visibility import (count_openness, geomorphons, get_geomorphons,
-                             get_geomorphon_from_openness)
+from .ops.visibility import (openness, openness_pair, skyview_factor,
+                             count_openness,
+                             geomorphons, geomorphons2,
+                             ternary_pattern_from_openness,
+                             get_geomorphons, get_geomorphon_from_openness)

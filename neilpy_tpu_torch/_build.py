@@ -1,11 +1,12 @@
 """Build the package's CUDA kernels at first use.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` into one shared library
-with a plain C interface, loaded with ``ctypes``.  No PyTorch headers are
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc``, all started
+together, and the objects are linked into one shared library with a
+plain C interface, loaded with ``ctypes``.  No PyTorch headers are
 included, so a build takes seconds.  The library lands in
 ``build/neilpy_tpu_torch/`` beside the package (git-ignored), named by a
-hash of the sources and flags, so an edit to a source rebuilds it and an
-unchanged tree reuses it.
+hash of the sources (``*.cu`` and the shared ``*.cuh``) and flags, so an
+edit to a source rebuilds it and an unchanged tree reuses it.
 
 Flags: ``-gencode arch=compute_90a,code=sm_90a`` (Hopper), ``-O3``,
 ``-fmad=false`` so no multiply-add is contracted into an FMA (the kernels
@@ -28,8 +29,7 @@ _PKG_DIR = Path(__file__).resolve().parent
 SOURCE_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "neilpy_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC")
+              "-O3", "-fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
 def _sources():
     srcs = sorted(SOURCE_DIR.glob("*.cu"))
@@ -58,6 +58,20 @@ def library_path():
     return BUILD_DIR / f"libneilpy_tpu_torch_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds):
+    """Start every command at once, wait for all, and raise with the
+    output of the first that failed; return their joined output."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
 def build():
     """Compile the sources unless the library for them exists; return
     its path.  nvcc's output (ptxas's per-kernel registers and spills)
@@ -66,16 +80,22 @@ def build():
     if lib.is_file():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    objs = [lib.with_suffix(f".{src.stem}.{os.getpid()}.o")
+            for src in _sources()]
+    try:
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                        for src, obj in zip(_sources(), objs)])
+        log += _run_all([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                          *(str(o) for o in objs)]])
+    except RuntimeError:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}")
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        raise
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    lib.with_suffix(".log").write_text(log)
     os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
     return lib
 
@@ -86,8 +106,21 @@ def load():
     declare its C entries."""
     lib = ctypes.CDLL(str(build()))
     p = ctypes.c_void_p
-    fn = lib.openness_counts_launch
-    fn.argtypes = [p, ctypes.c_longlong, ctypes.c_longlong, p, p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_float, p, p, p]
-    fn.restype = ctypes.c_int
+    i = ctypes.c_int
+    hw = (ctypes.c_longlong, ctypes.c_longlong)
+    entries = {
+        # (Z, H, W, ladder, scales, K, Rmax, T, num_pos, num_neg, stream)
+        "openness_counts_launch": [p, *hw, p, p, i, i, ctypes.c_float, p, p,
+                                   p],
+        # (Z, H, W, ladder, scales, K, Rmax, mx, mn, stream)
+        "directional_extrema_launch": [p, *hw, p, p, i, i, p, p, p],
+        # (Z, H, W, ladder, scales, K, Rmax, mode, neg_mode, T,
+        #  out0, out1, code, stream)
+        "openness_reduced_launch": [p, *hw, p, p, i, i, i, i,
+                                    ctypes.c_float, p, p, p, p],
+    }
+    for name, argtypes in entries.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return lib

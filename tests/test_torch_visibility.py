@@ -245,6 +245,9 @@ def test_import_needs_no_jax():
     """The port never imports jax (the machine with the card has none);
     a subprocess, because this test process has jax loaded already."""
     code = ("import neilpy_tpu_torch, sys; "
+            "from neilpy_tpu_torch import openness_pair, geomorphons2; "
+            "from neilpy_tpu_torch.ops.cuda_scan import ("
+            "openness_reduced, directional_extrema); "
             "assert 'jax' not in sys.modules; "
             "assert 'neilpy_tpu' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
