@@ -8,11 +8,12 @@ Run from the root of a checkout, with no arguments::
 It builds the port's CUDA kernels from ``neilpy_tpu_torch/csrc`` (nvcc,
 into the git-ignored ``build/``) and holds each against its plain
 PyTorch version on the card: K1 (openness counts), K2 (the fused
-openness / skyview / ternary reduction) and K3 (the per-direction
-extrema planes).  It checks the port against the f64 numpy oracles of
-``tests/reference_impls.py``, then drives two paths at the reference
-scale, an 8192 x 8192 DEM written as a GeoTIFF and read back with
-``imread``, at lookup 50:
+openness / skyview / ternary reduction), K3 (the per-direction extrema
+planes, with and without a global origin) and K4 (the counts of one
+haloed shard block).  It checks the port against the f64 numpy oracles
+of ``tests/reference_impls.py``, then drives three paths at the
+reference scale, an 8192 x 8192 DEM written as a GeoTIFF and read back
+with ``imread``, at lookup 50:
 
 - ``main_path``: ``geomorphons`` (exact, enhance, fast) -> ``imwrite``
   of the classes (K1);
@@ -20,16 +21,26 @@ scale, an 8192 x 8192 DEM written as a GeoTIFF and read back with
   ``ternary_pattern_from_openness(lowest=True)`` ->
   ``openness(neighbors=[1, 5])`` ->
   ``geomorphons2(use_negative_openness=False, outfile=...)`` ->
-  ``imwrite`` of the positive openness (K2 x 3, K3 x 2).
+  ``imwrite`` of the positive openness (K2 x 3, K3 x 2);
+- ``sharded_path``: ``dist.sharded_geomorphons`` on ``make_mesh()`` (the
+  visible cards; 1 x 1 on one card) and on a 2 x 2 mesh naming the card
+  four times (exact and fast; K4 x 4 each), ``sharded_openness`` and
+  ``sharded_skyview`` on that mesh (K3's origin entry x 4 each), each
+  against the single-device function, then K4 and K3's origin entry
+  against their plain versions on every haloed block of that mesh, then
+  small multi-hop and non-divisible cases.
 
 Each path runs with every launch count set to 0 just before it and read
-just after, and every output is compared with its plain version at full
-size.  Last, it times each kernel and its plain version with CUDA
-events.
+just after, and every output is compared with its plain version (the
+sharded outputs with the single-device ones) at full size.  Last, it
+times each kernel and its plain version with CUDA events, and the
+sharded call against the single-device one.
 
 Tolerances, kernel against plain version: counts, classes, extrema and
 ternary codes exact; openness within 5e-5 degrees, with +inf (a pixel
 that saw nothing) at the same pixels; skyview factor within 1e-6.
+Sharded against single-device: classes exact, openness within 1e-4
+degrees, skyview within 1e-6 (tests/test_dist.py).
 
 Every phase prints one JSON line.  The lines before the last are the
 card's name and power limit as nvidia-smi reports them, then the kernel
@@ -57,6 +68,7 @@ OPENNESS_TOL = 5e-5            # degrees: atanf vs torch.atan, per direction
 SVF_TOL = 1e-6
 ORACLE_OPENNESS_TOL = 2e-4     # degrees, as tests/test_visibility.py
 ORACLE_SVF_TOL = 2e-6          # as tests/test_visibility.py
+SHARDED_OPENNESS_TOL = 1e-4    # degrees, as tests/test_dist.py
 
 
 def emit(**record):
@@ -87,7 +99,8 @@ def kernel_fns(cuda_scan):
     """The kernels' wrappers, whose ``launches`` the paths count."""
     return {"K1": cuda_scan.openness_counts_cuda,
             "K2": cuda_scan.openness_reduced_cuda,
-            "K3": cuda_scan.directional_extrema_cuda}
+            "K3": cuda_scan.directional_extrema_cuda,
+            "K4": cuda_scan.openness_counts_block_cuda}
 
 
 def reset_counts(cuda_scan):
@@ -205,7 +218,68 @@ def kernel_vs_plain(cuda_scan, dev):
          max_abs_err_by_mode=k2_err, tolerance_by_mode={
              "openness_deg": OPENNESS_TOL, "svf": SVF_TOL, "ternary": 0})
     emit(phase="kernel_vs_plain", kernel="K3", cases=n3, max_abs_err=k3_err)
-    return {"K1": worst, "K2": max(k2_err.values()), "K3": k3_err}
+    k4_err, k3o_err = block_kernels_vs_plain(cuda_scan, dev, big)
+    return {"K1": worst, "K2": max(k2_err.values()),
+            "K3": max(k3_err, k3o_err), "K4": k4_err}
+
+
+def block_kernels_vs_plain(cuda_scan, dev, big):
+    """K4 and K3's origin entry against their plain versions on blocks cut
+    from the NaN-padded 1000 x 1537 raster (nodata hole, all-NaN row
+    band): corner, edge, interior and hole origins, lookups 7 and 50,
+    both ladders, and a lookup larger than the block; K4 also against
+    K1's single-device counts on the block's core.  All exact."""
+    H, W = big.shape
+    origins = [(0, 0), (0, W - 384), (300, 500), (H - 250, W - 384),
+               (690, 700)]
+    cases = [(o, (250, 384), lk, False) for o in origins for lk in (7, 50)]
+    cases += [(o, (250, 384), lk, True) for o in origins[1:3]
+              for lk in (7, 50)]
+    cases += [(o, (40, 60), 100, False) for o in ((0, 0), (480, 700))]
+    single = {}
+    worst = 0
+    for (oy, ox), (bh, bw), lk, fast in cases:
+        Zp = np.pad(big, lk, constant_values=np.nan)
+        block = torch.from_numpy(np.ascontiguousarray(
+            Zp[oy:oy + bh + 2 * lk, ox:ox + bw + 2 * lk])).to(dev)
+        kw = dict(cellsize=2.0, threshold_angle=1.0, fast=fast)
+        args = (block, (oy, ox), (H, W), lk)
+        k = cuda_scan.openness_counts_block_cuda(*args, **kw)
+        p = cuda_scan.openness_counts_block_torch(*args, **kw)
+        if (lk, fast) not in single:
+            single[(lk, fast)] = cuda_scan.openness_counts_cuda(
+                torch.from_numpy(big).to(dev), lookup_pixels=lk, **kw)
+        s = [c[oy:oy + bh, ox:ox + bw] for c in single[(lk, fast)]]
+        torch.cuda.synchronize()
+        what = f"K4 at origin {(oy, ox)} block {(bh, bw)} lookup={lk} fast={fast}"
+        err = max(int((a.int() - b.int()).abs().max()) for a, b in zip(k, p))
+        worst = max(worst, err)
+        check(err == 0, f"{what}: kernel != plain (max |diff| {err})")
+        check(all(torch.equal(a, b) for a, b in zip(k, s)),
+              f"{what}: != single-device K1 counts on the core")
+    emit(phase="kernel_vs_plain", kernel="K4", cases=len(cases),
+         max_abs_err=worst)
+
+    k3o = 0.0
+    n = 0
+    for (oy, ox), lk in (((0, 0), 7), ((300, 500), 50), ((H - 250, 0), 50),
+                         ((690, 700), 7)):
+        Zp = np.pad(big, lk, constant_values=np.nan)
+        block = torch.from_numpy(np.ascontiguousarray(
+            Zp[oy:oy + 250 + 2 * lk, ox:ox + 384 + 2 * lk])).to(dev)
+        kw = dict(cellsize=2.0, lookup_pixels=lk, origin=(oy - lk, ox - lk),
+                  global_shape=(H, W))
+        k = cuda_scan.directional_extrema_cuda(block, **kw)
+        p = cuda_scan.directional_extrema_torch(block, **kw)
+        torch.cuda.synchronize()
+        for a, b in zip(k, p):
+            what = f"K3 origin entry at {(oy, ox)} lookup={lk}"
+            check(torch.equal(a, b), f"{what}: kernel != plain")
+            k3o = max(k3o, float_err(a, b, 0.0, what))
+        n += 1
+    emit(phase="kernel_vs_plain", kernel="K3 origin entry", cases=n,
+         max_abs_err=k3o)
+    return worst, k3o
 
 
 def oracle_check(ntt, dev):
@@ -305,7 +379,7 @@ def main_path(ntt, cuda_scan, dev, tmp, Z, dem):
     emit(phase="main_path", shape=list(MAIN_SHAPE), lookup=MAIN_LOOKUP,
          launches=launches, launches_by_kernel=counts, wall_s=wall,
          class_histogram=hist)
-    return Zd, launches
+    return Zd, launches, G, G_fast
 
 
 def openness_path(ntt, cuda_scan, dev, tmp, Z, dem):
@@ -384,6 +458,125 @@ def openness_path(ntt, cuda_scan, dev, tmp, Z, dem):
     return counts
 
 
+def sharded_path(ntt, cuda_scan, dev, Zd, G, G_fast):
+    """Phase 6: the mesh-sharded path at 8192^2, lookup 50, threshold 1,
+    against the single-device classes ``G`` / ``G_fast`` of the main
+    path: ``sharded_geomorphons`` on ``make_mesh()`` and on a 2 x 2 mesh
+    naming this card four times (K4 once per block, K1 never), then
+    ``sharded_openness`` / ``sharded_skyview`` on the 2 x 2 mesh (K3's
+    origin entry once per block) against ``openness`` /
+    ``skyview_factor``; then K4 and K3's origin entry against their plain
+    versions on the mesh's blocks (uncounted); last, small multi-hop and
+    non-divisible cases on a 2 x 4 mesh of this card."""
+    dist = ntt.dist
+    kw = dict(cellsize=10.0, lookup_pixels=MAIN_LOOKUP)
+    visible = dist.make_mesh()
+    mesh = dist.make_mesh([dev] * 4)
+    check(visible.devices.size == torch.cuda.device_count()
+          and mesh.devices.shape == (2, 2), "mesh shapes")
+    calls = [("make_mesh() exact", lambda: dist.sharded_geomorphons(
+                 Zd, visible, threshold_angle=1, **kw), G, "K4"),
+             ("2x2 exact", lambda: dist.sharded_geomorphons(
+                 Zd, mesh, threshold_angle=1, **kw), G, "K4"),
+             ("2x2 fast", lambda: dist.sharded_geomorphons(
+                 Zd, mesh, threshold_angle=1, fast=True, **kw), G_fast, "K4"),
+             ("2x2 openness", lambda: dist.sharded_openness(Zd, mesh, **kw),
+              None, "K3"),
+             ("2x2 skyview", lambda: dist.sharded_skyview(Zd, mesh, **kw),
+              None, "K3")]
+    torch.cuda.synchronize()
+
+    reset_counts(cuda_scan)
+    t0 = time.perf_counter()
+    outs, per_call = [], []
+    for name, call, _, _ in calls:
+        before = read_counts(cuda_scan)
+        outs.append(call())
+        after = read_counts(cuda_scan)
+        per_call.append({k: after[k] - before[k] for k in after})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts(cuda_scan)
+
+    for (name, _, want, kid), out, delta in zip(calls, outs, per_call):
+        n_blocks = (visible if name.startswith("make_mesh") else mesh).devices.size
+        others = {k: v for k, v in delta.items() if k != kid}
+        check(delta[kid] == n_blocks and not any(others.values()),
+              f"{name}: launched {delta}, expected {kid} x {n_blocks} only")
+        check(out.shape == MAIN_SHAPE and out.is_cuda, f"{name}: shape/device")
+        if want is not None:
+            check(torch.equal(out, want), f"{name}: != single-device classes")
+    errs = {
+        "openness_deg": float_err(outs[3], ntt.openness(Zd, **kw),
+                                  SHARDED_OPENNESS_TOL, "sharded_openness"),
+        "skyview": float_err(outs[4], ntt.skyview_factor(Zd, **kw), SVF_TOL,
+                             "sharded_skyview")}
+    del outs
+    block_errs = mesh_blocks_vs_plain(cuda_scan, dist, Zd, mesh)
+
+    mesh8 = dist.make_mesh([dev] * 8, shape=(2, 4))
+    small = 0
+    for shape, lk in (((16, 32), 12), ((16, 32), 30), ((45, 53), 3)):
+        Zs = torch.from_numpy(np.random.default_rng(0).normal(size=shape)
+                              .cumsum(axis=0).astype(np.float32)).to(dev)
+        got = dist.sharded_geomorphons(Zs, mesh8, lookup_pixels=lk)
+        check(torch.equal(got, ntt.geomorphons(Zs, lookup_pixels=lk)),
+              f"sharded {shape} lookup={lk} on 2x4 != single-device")
+        small += 1
+    emit(phase="sharded_path", shape=list(MAIN_SHAPE), lookup=MAIN_LOOKUP,
+         meshes={"make_mesh()": list(visible.devices.shape),
+                 "one card": list(mesh.devices.shape)},
+         launches_by_kernel=counts, launches_by_call=dict(
+             zip([c[0] for c in calls], per_call)),
+         wall_s=wall, classes_equal_single_device=True, max_abs_err=errs,
+         small_cases_equal=small)
+    return counts, mesh, block_errs
+
+
+def mesh_blocks_vs_plain(cuda_scan, dist, Zd, mesh):
+    """K4 (both ladders) and K3's origin entry against their plain
+    versions on every haloed block of the 2 x 2 mesh at 8192^2, lookup 50,
+    the shapes and origins the sharded path gives them (4196^2 blocks,
+    cores at (0 | 4096, 0 | 4096)): counts and extrema planes exact."""
+    from neilpy_tpu_torch.dist.halo import _shard, halo_exchange_2d
+    R = MAIN_LOOKUP
+    H, W = Zd.shape
+    ny, nx = mesh.devices.shape
+    bshape = (H // ny, W // nx)
+    blocks = halo_exchange_2d(_shard(Zd, mesh.devices), R, "nan")
+    k4 = k3 = n4 = n3 = 0
+    for y, row in enumerate(blocks):
+        for x, block in enumerate(row):
+            oy, ox = dist.block_origin(bshape, (y, x))
+            where = f"2x2 block {(y, x)} at origin {(oy, ox)}"
+            for fast in (False, True):
+                args = (block, (oy, ox), (H, W), R)
+                kw = dict(cellsize=10.0, threshold_angle=1.0, fast=fast)
+                k = cuda_scan.openness_counts_block_cuda(*args, **kw)
+                p = cuda_scan.openness_counts_block_torch(*args, **kw)
+                err = max(int((a.int() - b.int()).abs().max())
+                          for a, b in zip(k, p))
+                check(err == 0, f"K4 on {where} fast={fast}: kernel != plain "
+                                f"(max |diff| {err})")
+                k4 = max(k4, err)
+                n4 += 1
+            kw = dict(cellsize=10.0, lookup_pixels=R, origin=(oy - R, ox - R),
+                      global_shape=(H, W))
+            k = cuda_scan.directional_extrema_cuda(block, **kw)
+            p = cuda_scan.directional_extrema_torch(block, **kw)
+            for a, b in zip(k, p):
+                what = f"K3 origin entry on {where}"
+                check(torch.equal(a, b), f"{what}: kernel != plain")
+                k3 = max(k3, float_err(a, b, 0.0, what))
+            n3 += 1
+            del k, p
+    emit(phase="kernel_vs_plain", kernel="K4", cases=n4, max_abs_err=k4,
+         at="every 2x2 mesh block, 8192^2, lookup 50")
+    emit(phase="kernel_vs_plain", kernel="K3 origin entry", cases=n3,
+         max_abs_err=k3, at="every 2x2 mesh block, 8192^2, lookup 50")
+    return {"K4": k4, "K3": k3}
+
+
 def time_turns(fns, call):
     """CUDA-event ms of ``TIMED_RUNS`` runs of each ``fns[key]`` through
     ``call``, in turns (plain, kernel, kernel, plain, ...) after one
@@ -405,20 +598,24 @@ def time_turns(fns, call):
     return times
 
 
-def timings(cuda_scan, Zd, card):
-    """Phase 6: median of CUDA-event times, kernel and plain in turns,
-    for K1 (both ladders), K2 (each mode) and K3."""
+def timings(ntt, cuda_scan, Zd, mesh, card):
+    """Phase 7: median of CUDA-event times, kernel and plain in turns,
+    for K1 (both ladders), K2 (each mode), K3 and K4 (one 4096^2 block of
+    the 2 x 2 mesh); then the halo exchange alone and the
+    ``sharded_geomorphons`` call on the one-card 2 x 2 mesh against the
+    single-device ``geomorphons``."""
     H, W = Zd.shape
     base = dict(cellsize=10.0, lookup_pixels=MAIN_LOOKUP)
     res = {}
 
-    def record(kernel, label, times, **extra):
+    def record(kernel, label, times, shape=(H, W), **extra):
+        """``shape``: the output pixels one run makes."""
         for impl, ts in times.items():
             ms = statistics.median(ts)
             res[(kernel, label, impl)] = ms
             emit(phase="timing", kernel=kernel, impl=impl, **extra,
-                 shape=[H, W], lookup=MAIN_LOOKUP, runs=ts, median_ms=ms,
-                 mpix_per_s=H * W / ms / 1e3, card=card)
+                 shape=list(shape), lookup=MAIN_LOOKUP, runs=ts, median_ms=ms,
+                 mpix_per_s=shape[0] * shape[1] / ms / 1e3, card=card)
 
     for fast in (False, True):
         ladder = "fast" if fast else "exact"
@@ -437,6 +634,25 @@ def timings(cuda_scan, Zd, card):
         {"plain": cuda_scan.directional_extrema_torch,
          "kernel": cuda_scan.directional_extrema_cuda},
         lambda fn: fn(Zd, **base)), ladder="exact")
+
+    from neilpy_tpu_torch.dist.halo import _shard, halo_exchange_2d
+    grid = mesh.devices
+    block = halo_exchange_2d(_shard(Zd, grid), MAIN_LOOKUP, "nan")[0][0]
+    record("K4", "exact", time_turns(
+        {"plain": cuda_scan.openness_counts_block_torch,
+         "kernel": cuda_scan.openness_counts_block_cuda},
+        lambda fn: fn(block, (0, 0), (H, W), threshold_angle=1.0, **base)),
+        shape=(H // 2, W // 2), ladder="exact", block=list(block.shape))
+    del block
+    record("halo", "exchange", time_turns(
+        {"2x2": lambda: halo_exchange_2d(_shard(Zd, grid), MAIN_LOOKUP,
+                                         "nan")},
+        lambda fn: fn()), what="halo_exchange_2d, 2x2 mesh on one card")
+    gkw = dict(threshold_angle=1, **base)
+    record("geomorphons", "wall", time_turns(
+        {"single": lambda: ntt.geomorphons(Zd, **gkw),
+         "sharded": lambda: ntt.dist.sharded_geomorphons(Zd, mesh, **gkw)},
+        lambda fn: fn()), what="call, 2x2 mesh on one card vs one device")
     return res
 
 
@@ -473,13 +689,21 @@ def main():
     oracle_check(ntt, dev)
     with tempfile.TemporaryDirectory() as tmp:
         Z, dem = write_dem(ntt, tmp)
-        Zd, k1_launches = main_path(ntt, cuda_scan, dev, tmp, Z, dem)
+        Zd, k1_launches, G, G_fast = main_path(ntt, cuda_scan, dev, tmp, Z,
+                                               dem)
         counts = openness_path(ntt, cuda_scan, dev, tmp, Z, dem)
-    res = timings(cuda_scan, Zd, card)
+    sharded_counts, mesh, block_errs = sharded_path(ntt, cuda_scan, dev, Zd,
+                                                    G, G_fast)
+    for kid, err in block_errs.items():
+        max_err[kid] = max(max_err[kid], err)
+    del G, G_fast
+    res = timings(ntt, cuda_scan, Zd, mesh, card)
 
     rows = [("K1", "openness_counts", "exact", 401, k1_launches),
             ("K2", "openness_reduced", "openness", 856, counts["K2"]),
-            ("K3", "directional_extrema", "exact", 292, counts["K3"])]
+            ("K3", "directional_extrema", "exact", 292, counts["K3"]),
+            ("K4", "openness_counts_block", "exact", 1121,
+             sharded_counts["K4"])]
     kernels = [{
         "name": name,
         "route": "cuda",
@@ -494,6 +718,8 @@ def main():
                                 for m in ("openness", "svf", "ternary")}
     kernels[1]["plain_ms_by_mode"] = {m: res[("K2", m, "plain")]
                                       for m in ("openness", "svf", "ternary")}
+    kernels[2]["origin_entry_launches"] = sharded_counts["K3"]
+    kernels[3]["shape"] = "one (4196, 4196) haloed block of 8192^2, 2x2"
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,9 +3,10 @@ NVIDIA Hopper GPUs.
 
 It grows slice by slice beside the JAX package, which stays the
 reference each part is held against.  Ported so far: the README's main
-path, DEM -> geomorphon classes, and the rest of the openness family
+path, DEM -> geomorphon classes, the rest of the openness family
 (openness, negative openness, skyview factor, ternary codes,
-geomorphons2)::
+geomorphons2), and its mesh-sharded form (``dist``: a single-process
+mesh of torch devices, which may repeat one card)::
 
     import neilpy_tpu_torch as ntt
     Z, meta = ntt.imread("dem.tif")
@@ -14,6 +15,9 @@ geomorphons2)::
     pos, neg = ntt.openness_pair(Z, cellsize=meta["cellsize"],
                                  lookup_pixels=50)
     ntt.imwrite("openness.tif", pos, meta)
+    mesh = ntt.dist.make_mesh(["cuda:0"] * 4)          # 2 x 2 on one card
+    G2 = ntt.dist.sharded_geomorphons(Z, mesh, cellsize=meta["cellsize"],
+                                      lookup_pixels=50)
 
 Numpy input goes to the CUDA device by default, where the scan ladder
 runs in hand-written kernels (``csrc/*.cu``, built with nvcc at first
@@ -26,7 +30,7 @@ __version__ = "0.1.0"
 
 # ----- core -----------------------------------------------------------
 from .core.affine import Affine, from_origin
-from .core.shift import ashift
+from .core.shift import ashift, gradient2d
 from .core.codes import (int2base, get_lowest_equivalent,
                          terrain_code_to_geomorphon, progressive_window,
                          disk, distance_kernel, geomorphon_cmap,
@@ -44,3 +48,6 @@ from .ops.visibility import (openness, openness_pair, skyview_factor,
                              geomorphons, geomorphons2,
                              ternary_pattern_from_openness,
                              get_geomorphons, get_geomorphon_from_openness)
+
+# ----- multi-device (single-process mesh) ----------------------------
+from . import dist

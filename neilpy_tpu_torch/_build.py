@@ -112,8 +112,16 @@ def load():
         # (Z, H, W, ladder, scales, K, Rmax, T, num_pos, num_neg, stream)
         "openness_counts_launch": [p, *hw, p, p, i, i, ctypes.c_float, p, p,
                                    p],
+        # (Z, Hh, Wh, ladder, scales, K, Rmax, R, org_r, org_c, GH, GW, T,
+        #  num_pos, num_neg, stream)
+        "openness_counts_block_launch": [p, *hw, p, p, i, i, i, *hw, *hw,
+                                         ctypes.c_float, p, p, p],
         # (Z, H, W, ladder, scales, K, Rmax, mx, mn, stream)
         "directional_extrema_launch": [p, *hw, p, p, i, i, p, p, p],
+        # (Z, H, W, ladder, scales, K, Rmax, org_r, org_c, GH, GW, mx, mn,
+        #  stream)
+        "directional_extrema_global_launch": [p, *hw, p, p, i, i, *hw, *hw,
+                                              p, p, p],
         # (Z, H, W, ladder, scales, K, Rmax, mode, neg_mode, T,
         #  out0, out1, code, stream)
         "openness_reduced_launch": [p, *hw, p, p, i, i, i, i,

@@ -19,6 +19,7 @@ Direction convention (clockwise from upper-left = direction 0)::
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 # (row, col) offset of the *source* pixel for each direction.
@@ -68,3 +69,56 @@ def ashift(Z, direction, n=1):
         return Z
     mask = shift_valid_mask(Z.shape, direction, n, device=Z.device)
     return torch.where(mask, rolled(Z, direction, n), Z)
+
+
+def gradient2d(Z, spacing=1.0):
+    """``np.gradient`` on a 2-D array: central differences in the
+    interior, one-sided at the edges.  Returns (gy, gx), as
+    ``neilpy_tpu.core.shift.gradient2d`` (reference neilpy.py:460, 475,
+    849, 1785)."""
+    Z = torch.as_tensor(Z)
+
+    def axis_grad(A, axis):
+        n = A.shape[axis]
+        interior = (A.narrow(axis, 2, n - 2) - A.narrow(axis, 0, n - 2)) / (
+            2.0 * spacing)
+        first = (A.narrow(axis, 1, 1) - A.narrow(axis, 0, 1)) / spacing
+        last = (A.narrow(axis, n - 1, 1) - A.narrow(axis, n - 2, 1)) / spacing
+        return torch.cat([first, interior, last], dim=axis)
+
+    return axis_grad(Z, 0), axis_grad(Z, 1)
+
+
+def _pad_index(n, before, after, mode, device):
+    """Source index of every position of an axis of length ``n`` padded by
+    ``before`` / ``after``: clamped (``edge``) or mirrored with the edge
+    repeated, period 2n (``symmetric``), as ``np.pad``."""
+    i = torch.arange(-before, n + after, device=device)
+    if mode == "edge":
+        return i.clamp(0, n - 1)
+    k = i.remainder(2 * n)
+    return torch.where(k < n, k, 2 * n - 1 - k)
+
+
+def _pad(Z, pad, mode):
+    Z = torch.as_tensor(Z)
+    pairs = np.broadcast_to(np.asarray(pad, dtype=np.int64), (Z.dim(), 2))
+    if (pairs < 0).any():
+        raise ValueError(f"pad widths must be >= 0, got {pad!r}")
+    for axis, (before, after) in enumerate(pairs.tolist()):
+        if before or after:
+            Z = Z.index_select(axis, _pad_index(Z.shape[axis], before, after,
+                                                mode, Z.device))
+    return Z
+
+
+def pad_edge(Z, pad):
+    """Edge-replicate pad (scipy.ndimage mode='nearest'); ``pad`` as for
+    ``np.pad``."""
+    return _pad(Z, pad, "edge")
+
+
+def pad_reflect(Z, pad):
+    """Edge-inclusive reflect pad (scipy.ndimage mode='reflect'),
+    i.e. ``(d c b a | a b c d)`` — numpy's 'symmetric'."""
+    return _pad(Z, pad, "symmetric")

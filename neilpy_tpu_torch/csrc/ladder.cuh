@@ -1,8 +1,8 @@
 // The per-direction scan ladder shared by the port's openness kernels:
-// openness_counts.cu (K1), openness_reduced.cu (K2) and
-// directional_extrema.cu (K3).  Keeping it in one place means the three
-// kernels cannot drift apart; each inlines it, so the code is the same as
-// if it were written out in every kernel.
+// openness_counts.cu (K1), openness_reduced.cu (K2),
+// directional_extrema.cu (K3) and openness_counts_block.cu (K4).  Keeping
+// it in one place means the kernels cannot drift apart; each inlines it,
+// so the code is the same as if it were written out in every kernel.
 //
 // Replaces the TPU ladder neilpy_tpu/ops/pallas_scan.py:_extrema_ladder.
 // For pixel p and direction d it keeps the running max mx and min mn over
@@ -14,10 +14,15 @@
 // (a host table, ops/cuda_scan.py:_ladder_scales, so no division happens
 // here and the product matches pallas_scan.py:166,173 bit for bit).  NaN
 // reads (nodata holes) fail both compares and are skipped; the first step
-// off the raster ends the ladder, which skips the rest the way the TPU
+// off the array ends the ladder, which skips the rest the way the TPU
 // kernel's NaN pad does.  If the last ladder step p + d*Rmax leaves the
 // raster, mx >= 0 and mn <= 0 are enforced (the reference's edge
 // replication, pallas_scan.py:219-227).
+//
+// Two forms, chosen at compile time by the kernel: direction_extrema for a
+// whole raster (K1, K2, K3), and direction_extrema_global for a shard block
+// with its global origin (K4, K3's origin entry), where the array's edge
+// and the raster's edge differ.
 //
 // Every multiply and add is written with __fmul_rn / __fadd_rn /
 // __fsub_rn, which nvcc never fuses into an FMA; the build passes
@@ -73,24 +78,29 @@ __device__ __forceinline__ Pixel make_pixel(const float* __restrict__ Z,
   return px;
 }
 
-// mx, mn of direction d (a constant once the caller's direction loop is
-// unrolled).  One 32-bit step limit per direction, the largest L that
-// stays on the raster, replaces four 64-bit bounds tests per step: that
-// cut K1's time by a third on an H100 (PERF.md, the K1 probe).
-__device__ __forceinline__ void direction_extrema(
-    const Pixel& px, int d, int64_t W, const int* __restrict__ ladder,
-    const float* __restrict__ scales, int K, int Rmax, float& mx,
-    float& mn) {
+// Steps from the pixel to the array's edge in direction d (a constant once
+// the caller's direction loop is unrolled): the largest L whose read stays
+// on the array.
+__device__ __forceinline__ int edge_limit(const Pixel& px, int d) {
   const int dr = dir_dr(d);
   const int dc = dir_dc(d);
-  const int lim = min(dr < 0 ? px.up : (dr > 0 ? px.down : INT_MAX),
-                      dc < 0 ? px.left : (dc > 0 ? px.right : INT_MAX));
-  const int64_t step = (int64_t)dr * W + dc;
+  return min(dr < 0 ? px.up : (dr > 0 ? px.down : INT_MAX),
+             dc < 0 ? px.left : (dc > 0 ? px.right : INT_MAX));
+}
+
+// Running mx, mn of direction d over the ladder steps L <= lim.  One
+// 32-bit step limit per direction replaces four 64-bit bounds tests per
+// step: that cut K1's time by a third on an H100 (PERF.md, the K1 probe).
+__device__ __forceinline__ void scan_ladder(
+    const Pixel& px, int d, int64_t W, const int* __restrict__ ladder,
+    const float* __restrict__ scales, int K, int lim, float& mx,
+    float& mn) {
+  const int64_t step = (int64_t)dir_dr(d) * W + dir_dc(d);
   mx = -CUDART_INF_F;
   mn = CUDART_INF_F;
   for (int k = 0; k < K; ++k) {
     const int L = __ldg(ladder + k);
-    // the ladder increases, so the first step off the raster ends it
+    // the ladder increases, so the first step off the array ends it
     if (L > lim) break;
     const float src = __ldg(px.zp + step * L);
     const float ratio =
@@ -98,10 +108,47 @@ __device__ __forceinline__ void direction_extrema(
     if (ratio > mx) mx = ratio;
     if (ratio < mn) mn = ratio;
   }
-  if (Rmax > lim) {  // p + d*Rmax is off the raster
-    mx = fmaxf(mx, 0.0f);
-    mn = fminf(mn, 0.0f);
-  }
+}
+
+// The edge-replication epilogue: an out-of-range last step contributes a
+// ratio of exactly 0.
+__device__ __forceinline__ void clamp_out_of_range(float& mx, float& mn) {
+  mx = fmaxf(mx, 0.0f);
+  mn = fminf(mn, 0.0f);
+}
+
+// mx, mn of direction d on a whole raster: the array is the raster, so one
+// limit both ends the ladder and decides the epilogue (Rmax > lim means
+// p + d*Rmax is off the raster).
+__device__ __forceinline__ void direction_extrema(
+    const Pixel& px, int d, int64_t W, const int* __restrict__ ladder,
+    const float* __restrict__ scales, int K, int Rmax, float& mx,
+    float& mn) {
+  const int lim = edge_limit(px, d);
+  scan_ladder(px, d, W, ladder, scales, K, lim, mx, mn);
+  if (Rmax > lim) clamp_out_of_range(mx, mn);
+}
+
+// Where a pixel of a shard block lies in the global raster: its global
+// (row, col) and the global shape (pallas_scan.py:429-432).
+struct GlobalPos {
+  int64_t r, c;
+  int64_t H, W;
+};
+
+// mx, mn of direction d on a shard block: the ladder ends at the block's
+// edge, so no read leaves the allocation (the block carries its neighbours'
+// data in an R-wide halo, NaN beyond the raster, which the compares skip),
+// and the epilogue tests p + d*Rmax against the GLOBAL raster, exactly as
+// the XLA function's oob mask (neilpy_tpu/ops/visibility.py:140-144).
+__device__ __forceinline__ void direction_extrema_global(
+    const Pixel& px, const GlobalPos& g, int d, int64_t W,
+    const int* __restrict__ ladder, const float* __restrict__ scales, int K,
+    int Rmax, float& mx, float& mn) {
+  scan_ladder(px, d, W, ladder, scales, K, edge_limit(px, d), mx, mn);
+  const int64_t sr = g.r + (int64_t)dir_dr(d) * Rmax;
+  const int64_t sc = g.c + (int64_t)dir_dc(d) * Rmax;
+  if (sr < 0 || sr >= g.H || sc < 0 || sc >= g.W) clamp_out_of_range(mx, mn);
 }
 
 // The openness difference diff = atan(a) - atan(b), a = -mn, b = mx,

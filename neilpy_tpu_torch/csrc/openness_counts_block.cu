@@ -1,0 +1,89 @@
+// Geomorphon openness counts of one shard block, for NVIDIA Hopper
+// (sm_90a): K4.
+//
+// Replaces the TPU kernel neilpy_tpu/ops/pallas_scan.py:_counts_kernel as
+// launched by openness_counts_pallas_block (K1's body with a traced global
+// origin).  The input is a contiguous (bh + 2R, bw + 2R) float32 block: the
+// core of one device's share of the raster surrounded by an R-wide halo of
+// its neighbours' data, NaN beyond the raster (dist/halo.py, mode 'nan').
+// One thread per CORE pixel runs the scan ladder of ladder.cuh over the
+// haloed block and votes num_pos / num_neg as K1 does (tangent-space
+// classify); the outputs are core-shaped (bh, bw) uint8.
+//
+// What differs from K1 is where the ladder stops and where the
+// edge-replication epilogue is decided (ladder.cuh:direction_extrema_global):
+// the ladder ends at the edge of the haloed block, so no read leaves the
+// allocation, and the epilogue tests p + d*Rmax against the GLOBAL raster,
+// from the core's global origin and the global shape.  A core pixel's
+// ladder never reaches past the R-wide halo, so every read it makes is a
+// read the single-device kernel makes too (NaN beyond the raster is
+// skipped by the compares, as K1's early exit skips it); the counts are
+// those of K1 on the whole raster.
+//
+// Exactness: the ladder, the shared host scale table and the classify are
+// K1's, so the counts equal the plain PyTorch version
+// (ops/cuda_scan.py:openness_counts_block_torch) on the card.
+//
+// What bounds it on this card: K1's ladder, instruction-issue bound
+// (openness_counts.cu), at about R loads and 4 flops per step; the
+// epilogue's 64-bit global test runs once per direction, not per step.
+// The simple design stays: one thread per output pixel in 32x8 blocks, a
+// row stride of the haloed width and 64-bit indexing.
+
+#include "ladder.cuh"
+
+namespace {
+
+using namespace neilpy_ladder;
+
+__global__ void __launch_bounds__(kBlockX * kBlockY)
+openness_counts_block_kernel(const float* __restrict__ Z, int64_t Hh,
+                             int64_t Wh, const int* __restrict__ ladder,
+                             const float* __restrict__ scales, int K,
+                             int Rmax, int R, int64_t org_r, int64_t org_c,
+                             int64_t GH, int64_t GW, float T,
+                             uint8_t* __restrict__ num_pos,
+                             uint8_t* __restrict__ num_neg) {
+  const int64_t bh = Hh - 2 * (int64_t)R;
+  const int64_t bw = Wh - 2 * (int64_t)R;
+  const int64_t c = (int64_t)blockIdx.x * kBlockX + threadIdx.x;
+  const int64_t r = (int64_t)blockIdx.y * kBlockY + threadIdx.y;
+  if (r >= bh || c >= bw) return;
+  const Pixel px = make_pixel(Z, Hh, Wh, r + R, c + R);
+  const GlobalPos g{org_r + r, org_c + c, GH, GW};
+  int n_pos = 0;
+  int n_neg = 0;
+#pragma unroll
+  for (int d = 0; d < 8; ++d) {
+    float mx, mn;
+    direction_extrema_global(px, g, d, Wh, ladder, scales, K, Rmax, mx, mn);
+    bool gt, lt;
+    classify(mx, mn, T, gt, lt);
+    n_pos += gt ? 1 : 0;
+    n_neg += lt ? 1 : 0;
+  }
+  num_pos[r * bw + c] = (uint8_t)n_pos;
+  num_neg[r * bw + c] = (uint8_t)n_neg;
+}
+
+}  // namespace
+
+// C entry, bound with ctypes (neilpy_tpu_torch/ops/cuda_scan.py).  Z is
+// the (Hh, Wh) haloed block with halo R; (org_r, org_c) the global origin
+// of its core and (GH, GW) the global shape; num_pos and num_neg hold
+// (Hh - 2R) * (Wh - 2R) bytes each.  All pointers are device pointers;
+// ``stream`` is a cudaStream_t.  Launches on that stream, does not
+// synchronise, and returns cudaGetLastError().
+extern "C" int openness_counts_block_launch(
+    const float* Z, long long Hh, long long Wh, const int* ladder,
+    const float* scales, int K, int Rmax, int R, long long org_r,
+    long long org_c, long long GH, long long GW, float T,
+    unsigned char* num_pos, unsigned char* num_neg, void* stream) {
+  openness_counts_block_kernel<<<grid_for(Hh - 2LL * R, Wh - 2LL * R),
+                                 dim3(kBlockX, kBlockY), 0,
+                                 (cudaStream_t)stream>>>(
+      Z, (int64_t)Hh, (int64_t)Wh, ladder, scales, K, Rmax, R,
+      (int64_t)org_r, (int64_t)org_c, (int64_t)GH, (int64_t)GW, T, num_pos,
+      num_neg);
+  return (int)cudaGetLastError();
+}

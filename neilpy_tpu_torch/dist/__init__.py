@@ -1,0 +1,18 @@
+"""Multi-device execution layer: 2-D device meshes, halo exchange and
+sharded raster pipelines (PyTorch counterpart of ``neilpy_tpu/dist/``,
+its openness part).
+
+A mesh is a grid of ``torch.device`` driven from one process; it may
+name one device several times, so the sharded path runs on one card or
+on the host as well as across cards.
+"""
+
+from .api import (Mesh, make_mesh, pad_to_mesh, sharded_apply,
+                  sharded_geomorphons, sharded_openness, sharded_skyview)
+from .halo import halo_exchange_2d, block_origin
+
+__all__ = [
+    "Mesh", "make_mesh", "pad_to_mesh", "sharded_apply",
+    "sharded_geomorphons", "sharded_openness", "sharded_skyview",
+    "halo_exchange_2d", "block_origin",
+]

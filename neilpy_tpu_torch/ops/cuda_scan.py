@@ -17,7 +17,16 @@ are skipped); an out-of-range last step clamps ``mx >= 0`` and
   ``_extrema_kernel``): the (8, H, W) ``mx`` and ``mn`` planes;
 - ``openness_reduced`` (K2, ``csrc/openness_reduced.cu``, replaces
   ``_reduced_kernel``): the directions folded in order d = 0..7 into the
-  openness sums, the skyview sum, or the base-3 ternary code.
+  openness sums, the skyview sum, or the base-3 ternary code;
+- ``openness_counts_block`` (K4, ``csrc/openness_counts_block.cu``,
+  replaces ``_counts_kernel`` as ``openness_counts_pallas_block`` launches
+  it): K1's counts for the core of one shard block that carries an R-wide
+  halo, with the epilogue decided in global coordinates.
+
+A shard block (K4, and K3 given ``origin``) separates two limits: the
+ladder ends at the edge of the block in memory, and the epilogue tests
+the last step against the edge of the GLOBAL raster, from the block's
+``origin`` and ``global_shape`` (``dist/api.py``).
 
 All versions round exactly like the Pallas kernels: the ratio is a
 subtract and a multiply by ``scale[d, k] = f32(1/(cellsize*w_d)) /
@@ -29,7 +38,7 @@ kernels (interpret mode) on the CPU.  Openness calls ``atanf`` /
 within a tolerance (PERF.md).
 
 Each dispatcher (``openness_counts``, ``directional_extrema``,
-``openness_reduced``) picks by the tensor's device: the kernel for a
+``openness_reduced``, ``openness_counts_block``) picks by the tensor's device: the kernel for a
 CUDA tensor, the plain version for a CPU tensor.  Nothing falls back: a
 kernel that does not build or launch raises.
 """
@@ -48,6 +57,8 @@ from ..core.shift import OFFSETS, STEP_LENGTH
 
 __all__ = ["openness_counts", "openness_counts_torch",
            "openness_counts_cuda", "geomorphons_cuda",
+           "openness_counts_block", "openness_counts_block_torch",
+           "openness_counts_block_cuda",
            "directional_extrema", "directional_extrema_torch",
            "directional_extrema_cuda",
            "openness_reduced", "openness_reduced_torch",
@@ -112,12 +123,18 @@ def _check_mode(mode):
 # ----------------------------------------------------------------------
 # plain PyTorch versions
 # ----------------------------------------------------------------------
-def _ladder_extrema(Z, cellsize, lookup_pixels, fast, how_fast):
+def _ladder_extrema(Z, cellsize, lookup_pixels, fast, how_fast, origin=None,
+                    global_shape=None):
     """Yield ``(d, mx, mn)`` for d = 0..7: the ladder of every plain
     version, in plain PyTorch ops on any device.  Follows the Pallas
     formulation step for step: NaN pad, one shifted slice per (d, L),
     compare-select extrema (NaN never enters; ``torch.maximum`` would
-    propagate it), the out-of-range epilogue at ``Rmax``."""
+    propagate it), the out-of-range epilogue at ``Rmax``.
+
+    ``origin`` (global row, col of ``Z[0, 0]``) and ``global_shape`` put
+    the epilogue in global coordinates for a shard block, as the XLA
+    function does (neilpy_tpu/ops/visibility.py:140-144); reads still end
+    at the block's own edge (the NaN pad)."""
     H, W = Z.shape
     R = int(lookup_pixels)
     ladder = _ladder(R, fast, how_fast)
@@ -127,6 +144,10 @@ def _ladder_extrema(Z, cellsize, lookup_pixels, fast, how_fast):
     Zp = torch.nn.functional.pad(Z, (R, R, R, R), value=float("nan"))
     rows = torch.arange(H, device=Z.device)[:, None]
     cols = torch.arange(W, device=Z.device)[None, :]
+    if origin is not None:
+        rows = rows + int(origin[0])
+        cols = cols + int(origin[1])
+    GH, GW = (H, W) if global_shape is None else map(int, global_shape)
     for d, (dr, dc) in enumerate(OFFSETS):
         mx = torch.full((H, W), -math.inf, device=Z.device)
         mn = torch.full((H, W), math.inf, device=Z.device)
@@ -137,7 +158,7 @@ def _ladder_extrema(Z, cellsize, lookup_pixels, fast, how_fast):
             mn = torch.where(ratio < mn, ratio, mn)
         sr = rows + dr * Rmax
         sc = cols + dc * Rmax
-        oob = (sr < 0) | (sr >= H) | (sc < 0) | (sc >= W)
+        oob = (sr < 0) | (sr >= GH) | (sc < 0) | (sc >= GW)
         mx = torch.where(oob, mx.clamp(min=0.0), mx)
         mn = torch.where(oob, mn.clamp(max=0.0), mn)
         yield d, mx, mn
@@ -160,33 +181,72 @@ def _classify(mx, mn, T):
     return gt, lt
 
 
+def _votes(extrema, threshold_angle, shape, device, core=(slice(None),)):
+    """(num_pos, num_neg) uint8: the directions of ``extrema`` (from
+    :func:`_ladder_extrema`) voting at the pixels ``core`` selects."""
+    T = _threshold_tangent(threshold_angle)
+    num_pos = torch.zeros(shape, dtype=torch.uint8, device=device)
+    num_neg = torch.zeros(shape, dtype=torch.uint8, device=device)
+    for _, mx, mn in extrema:
+        gt, lt = _classify(mx[core], mn[core], T)
+        num_pos += gt
+        num_neg += lt
+    return num_pos, num_neg
+
+
 def openness_counts_torch(Z, cellsize=1.0, lookup_pixels=1,
                           threshold_angle=1.0, fast=False, how_fast=20):
     """(num_pos, num_neg) uint8 counts in plain PyTorch ops, on any
     device: the reference K1 is held against on the card, and the CPU
     path."""
     _check_raster(Z)
-    T = _threshold_tangent(threshold_angle)
-    num_pos = torch.zeros(Z.shape, dtype=torch.uint8, device=Z.device)
-    num_neg = torch.zeros(Z.shape, dtype=torch.uint8, device=Z.device)
-    for _, mx, mn in _ladder_extrema(Z, cellsize, lookup_pixels, fast,
-                                     how_fast):
-        gt, lt = _classify(mx, mn, T)
-        num_pos += gt
-        num_neg += lt
-    return num_pos, num_neg
+    return _votes(_ladder_extrema(Z, cellsize, lookup_pixels, fast,
+                                  how_fast),
+                  threshold_angle, Z.shape, Z.device)
+
+
+def _block_core(block, lookup_pixels):
+    """(R, bh, bw): the halo width and core shape of a block that carries
+    an R-wide halo, R = ``lookup_pixels`` (as
+    ``openness_counts_pallas_block``)."""
+    R = int(lookup_pixels)
+    bh, bw = block.shape[0] - 2 * R, block.shape[1] - 2 * R
+    if bh < 0 or bw < 0:
+        raise ValueError(f"block {tuple(block.shape)} cannot carry a halo of "
+                         f"lookup_pixels={lookup_pixels} on each side")
+    return R, bh, bw
+
+
+def openness_counts_block_torch(block_haloed, origin, global_shape,
+                                lookup_pixels, cellsize=1.0,
+                                threshold_angle=1.0, fast=False, how_fast=20):
+    """K4's counts in plain PyTorch ops, on any device: the reference K4 is
+    held against on the card, and the CPU path.  ``block_haloed`` is one
+    shard block with an R-wide halo of its neighbours' data (NaN beyond
+    the raster), R = ``lookup_pixels``; ``origin`` the global (row, col)
+    of its core; ``global_shape`` the raster's.  Returns core-shaped
+    (num_pos, num_neg) uint8, equal to the single-device counts there."""
+    _check_raster(block_haloed)
+    R, bh, bw = _block_core(block_haloed, lookup_pixels)
+    extrema = _ladder_extrema(
+        block_haloed, cellsize, R, fast, how_fast,
+        origin=(int(origin[0]) - R, int(origin[1]) - R),
+        global_shape=global_shape)
+    return _votes(extrema, threshold_angle, (bh, bw), block_haloed.device,
+                  core=(slice(R, R + bh), slice(R, R + bw)))
 
 
 def directional_extrema_torch(Z, cellsize=1.0, lookup_pixels=1, fast=False,
-                              how_fast=20):
+                              how_fast=20, origin=None, global_shape=None):
     """(mx, mn), each (8, H, W) float32, in plain PyTorch ops on any
     device: the reference K3 is held against on the card, and the CPU
-    path."""
+    path.  ``origin`` / ``global_shape``: a shard block's global position
+    (:func:`_ladder_extrema`)."""
     _check_raster(Z)
     mx_all = torch.empty((8, *Z.shape), dtype=torch.float32, device=Z.device)
     mn_all = torch.empty_like(mx_all)
     for d, mx, mn in _ladder_extrema(Z, cellsize, lookup_pixels, fast,
-                                     how_fast):
+                                     how_fast, origin, global_shape):
         mx_all[d] = mx
         mn_all[d] = mn
     return mx_all, mn_all
@@ -291,19 +351,53 @@ def openness_counts_cuda(Z, cellsize=1.0, lookup_pixels=1,
 openness_counts_cuda.launches = 0
 
 
-def directional_extrema_cuda(Z, cellsize=1.0, lookup_pixels=1, fast=False,
-                             how_fast=20):
-    """(mx, mn), each (8, H, W) float32, from K3
-    (``csrc/directional_extrema.cu``).  Same input rules, stream and
-    counter (``directional_extrema_cuda.launches``) as
+def openness_counts_block_cuda(block_haloed, origin, global_shape,
+                               lookup_pixels, cellsize=1.0,
+                               threshold_angle=1.0, fast=False, how_fast=20):
+    """K4 (``csrc/openness_counts_block.cu``): the core-shaped counts of
+    :func:`openness_counts_block_torch`.  Same input rules, stream and
+    counter (``openness_counts_block_cuda.launches``) as
     :func:`openness_counts_cuda`."""
+    _check_cuda(block_haloed, "openness_counts_block_cuda")
+    R, bh, bw = _block_core(block_haloed, lookup_pixels)
+    num_pos = torch.empty((bh, bw), dtype=torch.uint8,
+                          device=block_haloed.device)
+    num_neg = torch.empty_like(num_pos)
+    if num_pos.numel() == 0:
+        return num_pos, num_neg
+    _launch(block_haloed, "openness_counts_block_launch", cellsize, R, fast,
+            how_fast, R, int(origin[0]), int(origin[1]),
+            int(global_shape[0]), int(global_shape[1]),
+            _threshold_tangent(threshold_angle), num_pos.data_ptr(),
+            num_neg.data_ptr())
+    openness_counts_block_cuda.launches += 1
+    return num_pos, num_neg
+
+
+openness_counts_block_cuda.launches = 0
+
+
+def directional_extrema_cuda(Z, cellsize=1.0, lookup_pixels=1, fast=False,
+                             how_fast=20, origin=None, global_shape=None):
+    """(mx, mn), each (8, H, W) float32, from K3
+    (``csrc/directional_extrema.cu``); given ``origin`` or
+    ``global_shape``, from its entry for a shard block.  Same input rules,
+    stream and counter (``directional_extrema_cuda.launches``, both
+    entries) as :func:`openness_counts_cuda`."""
     _check_cuda(Z, "directional_extrema_cuda")
     mx = torch.empty((8, *Z.shape), dtype=torch.float32, device=Z.device)
     mn = torch.empty_like(mx)
     if Z.numel() == 0:
         return mx, mn
-    _launch(Z, "directional_extrema_launch", cellsize, lookup_pixels, fast,
-            how_fast, mx.data_ptr(), mn.data_ptr())
+    if origin is None and global_shape is None:
+        _launch(Z, "directional_extrema_launch", cellsize, lookup_pixels,
+                fast, how_fast, mx.data_ptr(), mn.data_ptr())
+    else:
+        org = (0, 0) if origin is None else origin
+        gshape = Z.shape if global_shape is None else global_shape
+        _launch(Z, "directional_extrema_global_launch", cellsize,
+                lookup_pixels, fast, how_fast, int(org[0]), int(org[1]),
+                int(gshape[0]), int(gshape[1]), mx.data_ptr(), mn.data_ptr())
     directional_extrema_cuda.launches += 1
     return mx, mn
 
@@ -367,13 +461,26 @@ def openness_counts(Z, cellsize=1.0, lookup_pixels=1, threshold_angle=1.0,
               threshold_angle=threshold_angle, fast=fast, how_fast=how_fast)
 
 
+def openness_counts_block(block_haloed, origin, global_shape, lookup_pixels,
+                          cellsize=1.0, threshold_angle=1.0, fast=False,
+                          how_fast=20, engine="auto"):
+    """K4's core-shaped (num_pos, num_neg) for one haloed shard block, by
+    ``engine``."""
+    fn = _pick(block_haloed, engine, openness_counts_block_cuda,
+               openness_counts_block_torch)
+    return fn(block_haloed, origin, global_shape, lookup_pixels,
+              cellsize=cellsize, threshold_angle=threshold_angle, fast=fast,
+              how_fast=how_fast)
+
+
 def directional_extrema(Z, cellsize=1.0, lookup_pixels=1, fast=False,
-                        how_fast=20, engine="auto"):
+                        how_fast=20, origin=None, global_shape=None,
+                        engine="auto"):
     """(mx, mn) (8, H, W) planes for a float32 tensor, by ``engine``."""
     fn = _pick(Z, engine, directional_extrema_cuda,
                directional_extrema_torch)
     return fn(Z, cellsize=cellsize, lookup_pixels=lookup_pixels, fast=fast,
-              how_fast=how_fast)
+              how_fast=how_fast, origin=origin, global_shape=global_shape)
 
 
 def openness_reduced(Z, mode, cellsize=1.0, lookup_pixels=1,

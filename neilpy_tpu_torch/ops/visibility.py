@@ -85,16 +85,18 @@ def directional_ratio_extrema(Z, cellsize=1.0, lookup_pixels=1,
     The ratio rounds like the Pallas kernel, ``(src - Z) * (f32(inv_w) /
     f32(L))``; the JAX package's XLA path divides, within 1e-5.
 
-    ``origin`` / ``global_shape`` (a halo-padded shard block) belong to
-    the multi-device slice, which is not ported yet."""
-    if origin is not None or global_shape is not None:
-        raise NotImplementedError(
-            "origin / global_shape (shard blocks) come with the port's "
-            "multi-device slice (ROADMAP Queue 1 item 10)")
+    Shard blocks: ``origin`` is the global (row, col) of ``Z[0, 0]`` and
+    ``global_shape`` the raster's, so the edge-replication epilogue is
+    decided in global coordinates for every pixel of ``Z``, halo pixels
+    too, while reads still end at ``Z``'s own edge.  A block carrying an
+    R-wide halo of real neighbour data (NaN beyond the raster) then gives
+    its core pixels the single-device extrema (``dist.sharded_openness``).
+    """
     mx, mn = directional_extrema(
         as_raster(Z, device), cellsize=float(cellsize),
         lookup_pixels=int(lookup_pixels), fast=bool(fast),
-        how_fast=int(how_fast), engine=engine)
+        how_fast=int(how_fast), origin=origin, global_shape=global_shape,
+        engine=engine)
     dirs = [int(d) for d in directions]
     if dirs != list(range(8)):
         mx, mn = mx[dirs], mn[dirs]

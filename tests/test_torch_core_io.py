@@ -139,3 +139,25 @@ def test_worldfile_matches(tmp_path):
     neilpy_tpu.write_worldfile(a, str(tmp_path / "j.pgw"))
     assert ((tmp_path / "t.pgw").read_text()
             == (tmp_path / "j.pgw").read_text())
+
+
+def test_gradient2d_matches_jax():
+    Z = np.random.default_rng(12345).normal(size=(48, 56)).cumsum(
+        axis=0).cumsum(axis=1).astype(np.float32)
+    for spacing in (1.0, 2.5):
+        ours = tshift.gradient2d(torch.from_numpy(Z), spacing)
+        ref = jshift.gradient2d(Z, spacing)
+        for a, b in zip(ours, ref):
+            assert a.dtype == torch.float32 and tuple(a.shape) == Z.shape
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+@pytest.mark.parametrize("pad", [1, (2, 3), ((0, 5), (7, 1)), 9])
+def test_pad_edge_and_reflect_match_jax(pad):
+    Z = np.arange(4 * 6, dtype=np.float32).reshape(4, 6)
+    np.testing.assert_array_equal(tshift.pad_edge(torch.from_numpy(Z),
+                                                  pad).numpy(),
+                                  np.asarray(jshift.pad_edge(Z, pad)))
+    np.testing.assert_array_equal(tshift.pad_reflect(torch.from_numpy(Z),
+                                                     pad).numpy(),
+                                  np.asarray(jshift.pad_reflect(Z, pad)))

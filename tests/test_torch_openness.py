@@ -89,9 +89,17 @@ def test_directional_ratio_extrema_subset_and_shards(Z):
                                                       device="cpu")
     assert mx.shape == (2, *Z.shape)
     assert torch.equal(mx, full[[5, 1]]) and torch.equal(mn, full_mn[[5, 1]])
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        tvis.directional_ratio_extrema(Z, lookup_pixels=3, device="cpu",
-                                       origin=(0, 0), global_shape=(9, 9))
+    # a shard block that is the whole raster is the raster; in a larger
+    # raster only the edge-replication epilogue moves (tests/test_torch_dist.py
+    # holds shard blocks against the JAX package)
+    whole, _, _ = tvis.directional_ratio_extrema(
+        Z, lookup_pixels=3, device="cpu", origin=(0, 0), global_shape=Z.shape)
+    assert torch.equal(whole, full)
+    inner, _, inner_seen = tvis.directional_ratio_extrema(
+        Z, lookup_pixels=3, device="cpu", origin=(10, 10),
+        global_shape=(Z.shape[0] + 20, Z.shape[1] + 20))
+    assert torch.equal(inner[:, 3:-3, 3:-3], full[:, 3:-3, 3:-3])
+    assert (inner_seen.sum() <= (full > -np.inf).sum()).item()
 
 
 def test_openness_pair(Z, lookup=7):
