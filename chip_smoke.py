@@ -9,19 +9,27 @@ It builds the port's CUDA kernels from ``neilpy_tpu_torch/csrc`` (nvcc,
 into the git-ignored ``build/``) and holds each against its plain
 PyTorch version on the card: K1 (openness counts), K2 (the fused
 openness / skyview / ternary reduction), K3 (the per-direction extrema
-planes, with and without a global origin) and K4 (the counts of one
-haloed shard block).  It checks the port against the f64 numpy oracles
-of ``tests/reference_impls.py``, then drives three paths at the
+planes, with and without a global origin), K4 (the counts of one
+haloed shard block) and K5 (the static region plan of K1 and K2).  Each
+kernel routes every (thread block, direction) pair to the masked or the
+maskless ladder; ``routes_vs_plain`` holds both routes of K1 and K2
+against each other (equal) and the plain version, and K3 and K4 against
+the plain version, on NaN holes, unaligned shapes and lookups 1 to 100,
+and ``maskless_share`` checks that at 8192^2 the host's route table sends
+more than 90% of the pairs down the maskless ladder.  It checks the port against the f64 numpy
+oracles of ``tests/reference_impls.py``, then drives three paths at the
 reference scale, an 8192 x 8192 DEM written as a GeoTIFF and read back
 with ``imread``, at lookup 50:
 
 - ``main_path``: ``geomorphons`` (exact, enhance, fast) -> ``imwrite``
-  of the classes (K1);
-- ``openness_path``: ``openness_pair`` -> ``skyview_factor`` ->
-  ``ternary_pattern_from_openness(lowest=True)`` ->
-  ``openness(neighbors=[1, 5])`` ->
+  of the classes (K5's static plan of K1 x 3 for the exact ladder, the
+  JAX package's default route there, and K1 x 1 for fast);
+- ``openness_path``: ``openness_pair`` (exact, then fast) ->
+  ``skyview_factor`` -> ``ternary_pattern_from_openness(lowest=True)``
+  -> ``openness(neighbors=[1, 5])`` ->
   ``geomorphons2(use_negative_openness=False, outfile=...)`` ->
-  ``imwrite`` of the positive openness (K2 x 3, K3 x 2);
+  ``imwrite`` of the positive openness (K5's plan of K2 x 3, K2 x 1,
+  K3 x 2);
 - ``sharded_path``: ``dist.sharded_geomorphons`` on ``make_mesh()`` (the
   visible cards; 1 x 1 on one card) and on a 2 x 2 mesh naming the card
   four times (exact and fast; K4 x 4 each), ``sharded_openness`` and
@@ -32,9 +40,16 @@ with ``imread``, at lookup 50:
 
 Each path runs with every launch count set to 0 just before it and read
 just after, and every output is compared with its plain version (the
-sharded outputs with the single-device ones) at full size.  Last, it
-times each kernel and its plain version with CUDA events, and the
-sharded call against the single-device one.
+sharded outputs with the single-device ones) at full size.  Then
+``full_size_vs_plain`` holds the raw outputs of K1 and K5 (counts, both
+ladders), K2 and K5 (each reduction) and K3 (the planes) against their
+plain versions at 8192^2, lookup 50.  Last, it times each kernel on each
+route (all blocks masked, dynamic, static) and its plain version with
+CUDA events, checks that both routes beat the all-masked launch (so the
+kernels really take the maskless ladder), and times the sharded call
+against the single-device one; the kernel table gives each kernel's
+bound (operations at the f32 instruction rate or bytes at the HBM rate,
+whichever is larger).
 
 Tolerances, kernel against plain version: counts, classes, extrema and
 ternary codes exact; openness within 5e-5 degrees, with +inf (a pixel
@@ -50,6 +65,7 @@ exits non-zero without that line; so does a machine with no CUDA device.
 """
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -64,6 +80,15 @@ HERE = Path(__file__).resolve().parent
 MAIN_SHAPE = (8192, 8192)      # bench.py SCALE_SHAPE: ~1e8 px, Poland EU-DEM scale
 MAIN_LOOKUP = 50
 TIMED_RUNS = 5
+# the H100 SXM's published rates (NVIDIA's data sheet): float32 outside
+# the tensor cores, 67 TFLOP/s counting an FMA as two operations, so
+# 33.5e12 single f32 instructions per second; and HBM3
+PEAK_F32_OPS = 67e12 / 2
+PEAK_HBM_BYTES = 3.35e12
+OPS_PER_STEP = 4               # sub, mul, max, min per ladder step: no FMA
+# both routes must beat the all-masked launch by this factor at 8192^2
+# (they take the maskless ladder on ~99% of the pairs)
+ROUTE_GAIN = 0.8
 OPENNESS_TOL = 5e-5            # degrees: atanf vs torch.atan, per direction
 SVF_TOL = 1e-6
 ORACLE_OPENNESS_TOL = 2e-4     # degrees, as tests/test_visibility.py
@@ -88,6 +113,21 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
+def ptxas_summary(log):
+    """[kernel, registers, spill bytes stored, spill bytes loaded] per
+    function of the build's ``ptxas -v`` log (mangled names)."""
+    out, fn, spill = [], None, (0, 0)
+    for ln in log.splitlines():
+        if "Function properties for" in ln:
+            fn = ln.split("Function properties for", 1)[1].strip()
+        elif "spill stores" in ln:
+            spill = tuple(int(v) for v in re.findall(r"(\d+) bytes spill", ln))
+        elif fn is not None and (m := re.search(r"Used (\d+) registers", ln)):
+            out.append([fn, int(m.group(1)), *spill])
+            fn, spill = None, (0, 0)
+    return out
+
+
 def bench_input(shape):
     """bench.py's input (``_bench_input``) at ``shape``: cumulative sums
     of seeded normals along both axes, float32."""
@@ -96,11 +136,15 @@ def bench_input(shape):
 
 
 def kernel_fns(cuda_scan):
-    """The kernels' wrappers, whose ``launches`` the paths count."""
+    """The kernels' wrappers, whose ``launches`` the paths count: K1-K4
+    on the dynamic route, K5's region plan of K1 (counts) and of K2
+    (reduced)."""
     return {"K1": cuda_scan.openness_counts_cuda,
             "K2": cuda_scan.openness_reduced_cuda,
             "K3": cuda_scan.directional_extrema_cuda,
-            "K4": cuda_scan.openness_counts_block_cuda}
+            "K4": cuda_scan.openness_counts_block_cuda,
+            "K5/counts": cuda_scan.openness_counts_plan_cuda,
+            "K5/reduced": cuda_scan.openness_reduced_plan_cuda}
 
 
 def reset_counts(cuda_scan):
@@ -110,6 +154,29 @@ def reset_counts(cuda_scan):
 
 def read_counts(cuda_scan):
     return {k: fn.launches for k, fn in kernel_fns(cuda_scan).items()}
+
+
+def ladder_steps(H, W, ladder, core=None):
+    """Ladder steps the kernels take on an (H, W) raster: per direction d
+    and entry L, the pixels whose read p + d*L is on the array (the
+    masked body stops at the edge; NaN reads are counted, the kernel makes
+    them).  ``core``: a shard block's core shape, every step of which
+    stays on its haloed array."""
+    from neilpy_tpu_torch.core.shift import OFFSETS
+    if core is not None:
+        return 8 * len(ladder) * core[0] * core[1]
+    return sum(max(0, H - abs(dr) * L) * max(0, W - abs(dc) * L)
+               for dr, dc in OFFSETS for L in ladder)
+
+
+def bound(steps, nbytes):
+    """(ms, side): the least time the card could take, the larger of the
+    operations at the f32 instruction rate (none of them fuses into an
+    FMA) and the bytes (each input read once, each output written once)
+    at the HBM rate."""
+    t_ops = OPS_PER_STEP * steps / PEAK_F32_OPS * 1e3
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def float_err(got, want, tol, what):
@@ -282,6 +349,197 @@ def block_kernels_vs_plain(cuda_scan, dev, big):
     return worst, k3o
 
 
+def route_rasters():
+    """The routing cases: today's rasters plus a NaN hole deep inside an
+    interior block, shapes that are not multiples of the 8 x 32 block,
+    and one raster smaller than the longest lookup."""
+    r = np.random.default_rng(11)
+    small = r.normal(size=(100, 140)).cumsum(0).cumsum(1).astype(np.float32)
+    big = r.normal(size=(1000, 1537)).cumsum(0).cumsum(1).astype(np.float32)
+    big[300:340, 500:620] = np.nan           # nodata hole
+    big[700:712, :] = np.nan                 # all-NaN row band
+    deep = r.normal(size=(600, 900)).cumsum(0).cumsum(1).astype(np.float32)
+    deep[300, 450] = np.nan                  # one NaN deep in the interior
+    odd = r.normal(size=(257, 389)).cumsum(0).astype(np.float32)
+    odd[100:120, 40:90] = np.nan
+    thin = r.normal(size=(97, 45)).cumsum(1).astype(np.float32)
+    tiny = r.normal(size=(24, 32)).cumsum(0).astype(np.float32)
+    return [("100x140", small), ("1000x1537+nan", big),
+            ("600x900+deep nan", deep), ("257x389+nan", odd),
+            ("97x45", thin), ("24x32", tiny)]
+
+
+def routes_vs_plain(cuda_scan, dev):
+    """Phase 3b: both routes of K1 and K2 (the dynamic kernel and K5's
+    static plan), exact and fast ladders, against each other and the
+    plain version; K3 and K4 (dynamic route only) against the plain
+    version; lookups 1 to 100, so R also exceeds the smaller rasters.
+    Between routes every output is equal (max |diff| 0, openness too);
+    against the plain version counts, codes and extrema exactly (extrema
+    by value), openness and skyview within the stated tolerances."""
+    worst = {"K1": 0, "K2": 0.0, "K3": 0.0, "K4": 0, "K5/counts": 0,
+             "K5/reduced": 0.0}
+    n = {k: 0 for k in worst}
+    lookups = (1, 2, 7, 12, 33, 50, 100)
+    modes = [("openness", {}), ("svf", {}),
+             ("ternary", {"threshold_angle": 1.0}),
+             ("ternary", {"threshold_angle": 1.0, "neg_mode": False})]
+    for name, Z in route_rasters():
+        Zd = torch.from_numpy(Z).to(dev)
+        for lk in lookups:
+            for fast in (False, True):
+                what = f"{name} lookup={lk} fast={fast}"
+                kw = dict(cellsize=2.0, lookup_pixels=lk, fast=fast)
+                p = cuda_scan.openness_counts_torch(Zd, threshold_angle=1.0,
+                                                    **kw)
+                for kid, fn in (("K1", cuda_scan.openness_counts_cuda),
+                                ("K5/counts",
+                                 cuda_scan.openness_counts_plan_cuda)):
+                    k = fn(Zd, threshold_angle=1.0, **kw)
+                    torch.cuda.synchronize()
+                    err = max(int((a.int() - b.int()).abs().max())
+                              for a, b in zip(k, p))
+                    check(err == 0, f"{kid} counts != plain on {what} "
+                                    f"(max |diff| {err})")
+                    n[kid] += 1
+                for mode, extra in modes:
+                    mkw = dict(kw, **extra)
+                    dyn = cuda_scan.openness_reduced_cuda(Zd, mode, **mkw)
+                    stat = cuda_scan.openness_reduced_plan_cuda(Zd, mode,
+                                                                **mkw)
+                    p = cuda_scan.openness_reduced_torch(Zd, mode, **mkw)
+                    torch.cuda.synchronize()
+                    for a, b in zip(dyn, stat):
+                        # uint16 is a storage type: compare as int32
+                        if a.dtype == torch.uint16:
+                            a, b = a.int(), b.int()
+                        check(torch.equal(a, b),
+                              f"K2 {mode} {extra}: routes differ on {what}")
+                    for kid, k in (("K2", dyn), ("K5/reduced", stat)):
+                        worst[kid] = max(worst[kid], reduced_err(
+                            cuda_scan, mode, k, p,
+                            f"{kid} {mode} {extra} on {what}"))
+                        n[kid] += 1
+                k = cuda_scan.directional_extrema_cuda(Zd, **kw)
+                p = cuda_scan.directional_extrema_torch(Zd, **kw)
+                torch.cuda.synchronize()
+                for a, b in zip(k, p):
+                    check(torch.equal(a, b), f"K3 extrema != plain (by value)"
+                                             f" on {what}")
+                n["K3"] += 1
+        # K4 and K3's origin entry on blocks of this raster padded with NaN:
+        # a corner block and, where the raster allows, an interior one
+        H, W = Z.shape
+        for lk in (2, 12, 50):
+            Zp = np.pad(Z, lk, constant_values=np.nan)
+            bh, bw = max(1, H // 2), max(1, W // 2)
+            for oy, ox in {(0, 0), (H - bh, W - bw), (H // 4, W // 4)}:
+                block = torch.from_numpy(np.ascontiguousarray(
+                    Zp[oy:oy + bh + 2 * lk, ox:ox + bw + 2 * lk])).to(dev)
+                args = (block, (oy, ox), (H, W), lk)
+                for fast in (False, True):
+                    bkw = dict(cellsize=2.0, threshold_angle=1.0, fast=fast)
+                    k = cuda_scan.openness_counts_block_cuda(*args, **bkw)
+                    p = cuda_scan.openness_counts_block_torch(*args, **bkw)
+                    torch.cuda.synchronize()
+                    err = max(int((a.int() - b.int()).abs().max())
+                              for a, b in zip(k, p))
+                    check(err == 0, f"K4 != plain on {name} block at "
+                                    f"{(oy, ox)} lookup={lk} fast={fast}")
+                    n["K4"] += 1
+                okw = dict(cellsize=2.0, lookup_pixels=lk,
+                           origin=(oy - lk, ox - lk), global_shape=(H, W))
+                k = cuda_scan.directional_extrema_cuda(block, **okw)
+                p = cuda_scan.directional_extrema_torch(block, **okw)
+                torch.cuda.synchronize()
+                check(all(torch.equal(a, b) for a, b in zip(k, p)),
+                      f"K3 origin entry != plain on {name} block at "
+                      f"{(oy, ox)} lookup={lk}")
+                n["K3"] += 1
+    emit(phase="routes_vs_plain", cases=n, max_abs_err=worst,
+         lookups=list(lookups), rasters=[r[0] for r in route_rasters()],
+         between_routes_max_abs_err=0)
+    return worst
+
+
+def maskless_share(cuda_scan, Zd):
+    """The share of (thread block, direction) pairs that the host's route
+    table (``cuda_scan.route_table``, the numpy model of the kernels'
+    predicate) sends down the maskless ladder on ``Zd`` at lookup 50,
+    under K5's plan and the dynamic predicate.  What the kernels do is
+    checked by ``timings``: both routes must beat the all-masked launch."""
+    share = {}
+    for name, spec in (("static", True), ("dynamic", False)):
+        for fast in (False, True):
+            t = cuda_scan.route_table(Zd, MAIN_LOOKUP, fast=fast,
+                                      specialize=spec)
+            share[f"{name}/{'fast' if fast else 'exact'}"] = float(
+                t.float().mean())
+    check(min(share.values()) > 0.9,
+          f"maskless share at {tuple(Zd.shape)}: {share}, expected > 0.9")
+    emit(phase="maskless_share", shape=list(Zd.shape), lookup=MAIN_LOOKUP,
+         block=list(cuda_scan.BLOCK), share=share, source="host route table")
+    return share
+
+
+def full_size_vs_plain(cuda_scan, Zd):
+    """Phase 6b: the kernels' raw outputs at 8192^2, lookup 50, against
+    their plain versions on the same input (uncounted): K1 and K5/counts
+    (threshold 1, both ladders) exactly and equal to each other; K2 and
+    K5/reduced (each mode, exact ladder; K2 also openness on the fast
+    ladder) at the stated tolerances and equal to each other; K3's planes
+    exactly by value.  The paths compare only what these outputs become
+    (classes, degrees), which can hide a wrong count or extremum."""
+    kw = dict(cellsize=10.0, lookup_pixels=MAIN_LOOKUP)
+    worst = {"K1": 0, "K5/counts": 0, "K2": 0.0, "K5/reduced": 0.0,
+             "K3": 0.0}
+    for fast in (False, True):
+        p = cuda_scan.openness_counts_torch(Zd, threshold_angle=1.0,
+                                            fast=fast, **kw)
+        outs = {}
+        for kid, fn in (("K1", cuda_scan.openness_counts_cuda),
+                        ("K5/counts", cuda_scan.openness_counts_plan_cuda)):
+            outs[kid] = fn(Zd, threshold_angle=1.0, fast=fast, **kw)
+            torch.cuda.synchronize()
+            err = max(int((a.int() - b.int()).abs().max())
+                      for a, b in zip(outs[kid], p))
+            check(err == 0, f"{kid} counts at 8192^2 fast={fast}: kernel != "
+                            f"plain (max |diff| {err})")
+            worst[kid] = max(worst[kid], err)
+        check(all(torch.equal(a, b) for a, b in zip(*outs.values())),
+              f"K1 and K5 counts differ at 8192^2 fast={fast}")
+        del p, outs
+    variants = [("openness", False, {}), ("svf", False, {}),
+                ("ternary", False, {"threshold_angle": 1.0}),
+                ("openness", True, {})]
+    for mode, fast, extra in variants:
+        mkw = dict(kw, fast=fast, **extra)
+        p = cuda_scan.openness_reduced_torch(Zd, mode, **mkw)
+        dyn = cuda_scan.openness_reduced_cuda(Zd, mode, **mkw)
+        stat = cuda_scan.openness_reduced_plan_cuda(Zd, mode, **mkw)
+        torch.cuda.synchronize()
+        for a, b in zip(dyn, stat):
+            if a.dtype == torch.uint16:
+                a, b = a.int(), b.int()
+            check(torch.equal(a, b),
+                  f"K2 {mode} fast={fast}: routes differ at 8192^2")
+        for kid, k in (("K2", dyn), ("K5/reduced", stat)):
+            worst[kid] = max(worst[kid], reduced_err(
+                cuda_scan, mode, k, p, f"{kid} {mode} fast={fast} at 8192^2"))
+        del p, dyn, stat
+    k = cuda_scan.directional_extrema_cuda(Zd, **kw)
+    p = cuda_scan.directional_extrema_torch(Zd, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(k, p):
+        check(torch.equal(a, b), "K3 planes at 8192^2: kernel != plain "
+                                 "(by value)")
+        worst["K3"] = max(worst["K3"], float_err(a, b, 0.0, "K3 at 8192^2"))
+    del k, p
+    emit(phase="full_size_vs_plain", shape=list(Zd.shape),
+         lookup=MAIN_LOOKUP, max_abs_err=worst)
+    return worst
+
+
 def oracle_check(ntt, dev):
     """The repo's own oracles on the card: the J&S micro-morphologies,
     the f64 numpy geomorphon loop (classes may differ from it only at
@@ -341,7 +599,9 @@ def write_dem(ntt, tmp):
 
 
 def main_path(ntt, cuda_scan, dev, tmp, Z, dem):
-    """Phase 4: GeoTIFF -> imread -> geomorphons -> imwrite at 8192^2."""
+    """Phase 4: GeoTIFF -> imread -> geomorphons (exact, enhance, fast)
+    -> imwrite at 8192^2.  The exact calls take K5's static plan, the
+    fast one K1's dynamic route, as ``specialize=None`` resolves."""
     out = str(Path(tmp) / "classes.tif")
     torch.cuda.synchronize()
 
@@ -357,10 +617,13 @@ def main_path(ntt, cuda_scan, dev, tmp, Z, dem):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts(cuda_scan)
-    launches = counts["K1"]
 
-    check(launches == 4, f"main path launched the kernel {launches} times, "
-                         "expected 4 (exact, enhance x2, fast)")
+    # geomorphons' default route on the card is the JAX package's:
+    # K5's static plan for the exact ladder, K1's dynamic route for fast
+    want = {k: 0 for k in counts}
+    want.update({"K5/counts": 3, "K1": 1})
+    check(counts == want, f"main path launched {counts}, expected K5/counts"
+                          " x 3 (exact, enhance x2) and K1 x 1 (fast)")
     check(np.array_equal(Zr, Z), "GeoTIFF read-back differs from the DEM")
     check(meta["cellsize"] == 10.0, "cellsize lost in the GeoTIFF")
     Zd = torch.from_numpy(Zr).to(dev)
@@ -377,16 +640,15 @@ def main_path(ntt, cuda_scan, dev, tmp, Z, dem):
     check(np.array_equal(back, G.cpu().numpy()), "classes.tif read-back")
     hist = torch.bincount(G.flatten().long(), minlength=11)[1:].tolist()
     emit(phase="main_path", shape=list(MAIN_SHAPE), lookup=MAIN_LOOKUP,
-         launches=launches, launches_by_kernel=counts, wall_s=wall,
-         class_histogram=hist)
-    return Zd, launches, G, G_fast
+         launches_by_kernel=counts, wall_s=wall, class_histogram=hist)
+    return Zd, counts, G, G_fast
 
 
 def openness_path(ntt, cuda_scan, dev, tmp, Z, dem):
-    """Phase 5: GeoTIFF -> imread -> openness_pair -> skyview_factor ->
-    ternary codes (lowest) -> openness over neighbours 1 and 5 ->
-    geomorphons2 without negative openness (PNG + worldfile) -> imwrite
-    of the positive openness, at 8192^2, lookup 50."""
+    """Phase 5: GeoTIFF -> imread -> openness_pair (exact, then fast) ->
+    skyview_factor -> ternary codes (lowest) -> openness over neighbours 1
+    and 5 -> geomorphons2 without negative openness (PNG + worldfile) ->
+    imwrite of the positive openness, at 8192^2, lookup 50."""
     png = str(Path(tmp) / "geomorphons2.png")
     out = str(Path(tmp) / "openness.tif")
     torch.cuda.synchronize()
@@ -397,6 +659,7 @@ def openness_path(ntt, cuda_scan, dev, tmp, Z, dem):
     Zd = torch.from_numpy(Zr).to(dev)
     kw = dict(cellsize=meta["cellsize"], lookup_pixels=MAIN_LOOKUP)
     pos, neg = ntt.openness_pair(Zd, **kw)
+    fpos, fneg = ntt.openness_pair(Zd, fast=True, **kw)
     svf = ntt.skyview_factor(Zd, **kw)
     codes = ntt.ternary_pattern_from_openness(Zd, lowest=True, **kw)
     o15 = ntt.openness(Zd, neighbors=[1, 5], **kw)
@@ -407,11 +670,15 @@ def openness_path(ntt, cuda_scan, dev, tmp, Z, dem):
     wall = time.perf_counter() - t0
     counts = read_counts(cuda_scan)
 
-    check(counts["K2"] == 3 and counts["K3"] == 2 and counts["K1"] == 0,
-          f"openness path launched {counts}, expected K2 x 3 (pair, "
-          "skyview, ternary) and K3 x 2 (neighbours, geomorphons2)")
+    want = {k: 0 for k in counts}
+    want.update({"K5/reduced": 3, "K2": 1, "K3": 2})
+    check(counts == want,
+          f"openness path launched {counts}, expected K5/reduced x 3 (pair, "
+          "skyview, ternary), K2 x 1 (fast pair) and K3 x 2 (neighbours, "
+          "geomorphons2)")
     check(np.array_equal(Zr, Z), "GeoTIFF read-back differs from the DEM")
-    for name, t in (("pos", pos), ("neg", neg), ("svf", svf),
+    for name, t in (("pos", pos), ("neg", neg), ("fast pos", fpos),
+                    ("fast neg", fneg), ("svf", svf),
                     ("openness[1,5]", o15)):
         check(t.shape == MAIN_SHAPE and t.dtype == torch.float32
               and t.is_cuda and bool(torch.isfinite(t).all()),
@@ -432,7 +699,11 @@ def openness_path(ntt, cuda_scan, dev, tmp, Z, dem):
     errs["openness_pair_deg"] = max(
         float_err(pos, pp, OPENNESS_TOL, "openness_pair pos"),
         float_err(neg, pn, OPENNESS_TOL, "openness_pair neg"))
-    del pp, pn
+    pp, pn = ntt.openness_pair(Zd, fast=True, **plain)
+    errs["openness_pair_fast_deg"] = max(
+        float_err(fpos, pp, OPENNESS_TOL, "openness_pair fast pos"),
+        float_err(fneg, pn, OPENNESS_TOL, "openness_pair fast neg"))
+    del pp, pn, fpos, fneg
     errs["skyview"] = float_err(svf, ntt.skyview_factor(Zd, **plain),
                                 SVF_TOL, "skyview_factor")
     check(torch.equal(codes.int(), ntt.ternary_pattern_from_openness(
@@ -598,12 +869,33 @@ def time_turns(fns, call):
     return times
 
 
-def timings(ntt, cuda_scan, Zd, mesh, card):
-    """Phase 7: median of CUDA-event times, kernel and plain in turns,
-    for K1 (both ladders), K2 (each mode), K3 and K4 (one 4096^2 block of
-    the 2 x 2 mesh); then the halo exchange alone and the
-    ``sharded_geomorphons`` call on the one-card 2 x 2 mesh against the
-    single-device ``geomorphons``."""
+class all_masked:
+    """Within the block, the kernels' route mask is 0, so K1-K5 run the
+    masked ladder in every direction, as the kernels did before the
+    maskless ladder: a same-call baseline for the routes."""
+
+    def __init__(self, cuda_scan):
+        self.cuda_scan = cuda_scan
+
+    def __enter__(self):
+        self.saved = self.cuda_scan._ALLOW_MASKLESS
+        self.cuda_scan._ALLOW_MASKLESS = 0
+
+    def __exit__(self, *exc):
+        self.cuda_scan._ALLOW_MASKLESS = self.saved
+
+
+def timings(ntt, cuda_scan, Zd, mesh, card, share):
+    """Phase 7: median of CUDA-event times, in turns, at 8192^2, lookup 50:
+    the plain version, the kernel with every block on the masked ladder
+    (``all_masked``), the dynamic route (K1-K4) and K5's static plan (K1,
+    K2), for K1 (both ladders), K2 (each mode, and openness on the fast
+    ladder), K3 and K4 (one 4096^2 block of the 2 x 2 mesh); each route
+    must take under ``ROUTE_GAIN`` of the all-masked time, which shows the
+    kernels take the maskless ladder (``share`` is the host's route
+    table's share, printed beside it); then the halo exchange alone and
+    the ``sharded_geomorphons`` call on the one-card 2 x 2 mesh against
+    the single-device ``geomorphons``."""
     H, W = Zd.shape
     base = dict(cellsize=10.0, lookup_pixels=MAIN_LOOKUP)
     res = {}
@@ -617,33 +909,57 @@ def timings(ntt, cuda_scan, Zd, mesh, card):
                  shape=list(shape), lookup=MAIN_LOOKUP, runs=ts, median_ms=ms,
                  mpix_per_s=shape[0] * shape[1] / ms / 1e3, card=card)
 
+    def routes(plain, dynamic, static=None):
+        """The implementations to time in turns: the masked one runs the
+        dynamic kernel with the route mask 0."""
+        def masked(*args, **kw):
+            with all_masked(cuda_scan):
+                return dynamic(*args, **kw)
+        fns = {"plain": plain, "masked": masked, "dynamic": dynamic}
+        if static is not None:
+            fns["static"] = static
+        return fns
+
     for fast in (False, True):
         ladder = "fast" if fast else "exact"
         record("K1", ladder, time_turns(
-            {"plain": cuda_scan.openness_counts_torch,
-             "kernel": cuda_scan.openness_counts_cuda},
+            routes(cuda_scan.openness_counts_torch,
+                   cuda_scan.openness_counts_cuda,
+                   cuda_scan.openness_counts_plan_cuda),
             lambda fn: fn(Zd, threshold_angle=1.0, fast=fast, **base)),
             ladder=ladder)
-    for mode in ("openness", "svf", "ternary"):
-        record("K2", mode, time_turns(
-            {"plain": cuda_scan.openness_reduced_torch,
-             "kernel": cuda_scan.openness_reduced_cuda},
-            lambda fn: fn(Zd, mode, threshold_angle=1.0, **base)),
-            mode=mode, ladder="exact")
+    for mode, fast in (("openness", False), ("svf", False),
+                       ("ternary", False), ("openness", True)):
+        ladder = "fast" if fast else "exact"
+        record("K2", f"{mode}/{ladder}", time_turns(
+            routes(cuda_scan.openness_reduced_torch,
+                   cuda_scan.openness_reduced_cuda,
+                   cuda_scan.openness_reduced_plan_cuda),
+            lambda fn: fn(Zd, mode, threshold_angle=1.0, fast=fast, **base)),
+            mode=mode, ladder=ladder)
     record("K3", "exact", time_turns(
-        {"plain": cuda_scan.directional_extrema_torch,
-         "kernel": cuda_scan.directional_extrema_cuda},
+        routes(cuda_scan.directional_extrema_torch,
+               cuda_scan.directional_extrema_cuda),
         lambda fn: fn(Zd, **base)), ladder="exact")
 
     from neilpy_tpu_torch.dist.halo import _shard, halo_exchange_2d
     grid = mesh.devices
     block = halo_exchange_2d(_shard(Zd, grid), MAIN_LOOKUP, "nan")[0][0]
     record("K4", "exact", time_turns(
-        {"plain": cuda_scan.openness_counts_block_torch,
-         "kernel": cuda_scan.openness_counts_block_cuda},
+        routes(cuda_scan.openness_counts_block_torch,
+               cuda_scan.openness_counts_block_cuda),
         lambda fn: fn(block, (0, 0), (H, W), threshold_angle=1.0, **base)),
         shape=(H // 2, W // 2), ladder="exact", block=list(block.shape))
+    res["K4 block"] = tuple(block.shape)
     del block
+    ratios = {}
+    for key, ms in res.items():
+        if isinstance(key, tuple) and key[2] in ("dynamic", "static"):
+            ratios[" ".join(key)] = ms / res[(*key[:2], "masked")]
+    emit(phase="route_gain", over="all-masked launch, same run",
+         ratio=ratios, limit=ROUTE_GAIN, host_maskless_share=share)
+    check(max(ratios.values()) < ROUTE_GAIN,
+          f"a route is not well below its all-masked time: {ratios}")
     record("halo", "exchange", time_turns(
         {"2x2": lambda: halo_exchange_2d(_shard(Zd, grid), MAIN_LOOKUP,
                                          "nan")},
@@ -654,6 +970,70 @@ def timings(ntt, cuda_scan, Zd, mesh, card):
          "sharded": lambda: ntt.dist.sharded_geomorphons(Zd, mesh, **gkw)},
         lambda fn: fn()), what="call, 2x2 mesh on one card vs one device")
     return res
+
+
+def kernel_table(cuda_scan, res, launches, max_err):
+    """The ``kernels`` line: per kernel its launches on its path, its
+    error against the plain version, its time and the plain version's at
+    8192^2, lookup 50, on the ladder and route its path runs (K1 and K2:
+    the fast ladder, dynamic route; K3, K4 and K5: the exact ladder; K4
+    per 4096^2 block), and its bound from this run's shapes; the other
+    ladder's and route's times are extra fields.  No single PyTorch call
+    computes these functions, so ``library_ms`` is null."""
+    H, W = MAIN_SHAPE
+    px = H * W
+    steps = {lad: ladder_steps(H, W, cuda_scan._ladder(MAIN_LOOKUP,
+                                                       lad == "fast"))
+             for lad in ("exact", "fast")}
+    bh, bw = H // 2, W // 2
+    Hh, Wh = res["K4 block"]
+    counts_bytes = 4 * px + 2 * px     # input once, outputs once
+    sums_bytes = 4 * px + 8 * px
+    rows = [
+        # id, source name, TPU kernel line, timing key, route, ladder,
+        # bound (steps, bytes)
+        ("K1", "openness_counts", 401, ("K1", "fast"), "dynamic",
+         (steps["fast"], counts_bytes)),
+        ("K2", "openness_reduced", 856, ("K2", "openness/fast"), "dynamic",
+         (steps["fast"], sums_bytes)),
+        ("K3", "directional_extrema", 292, ("K3", "exact"), "dynamic",
+         (steps["exact"], 4 * px + 64 * px)),
+        ("K4", "openness_counts_block", 1121, ("K4", "exact"), "dynamic",
+         (ladder_steps(Hh, Wh, cuda_scan._ladder(MAIN_LOOKUP),
+                       core=(bh, bw)), 4 * Hh * Wh + 2 * bh * bw)),
+        ("K5/counts", "openness_counts_plan", 774, ("K1", "exact"),
+         "static", (steps["exact"], counts_bytes)),
+        ("K5/reduced", "openness_reduced_plan", 774,
+         ("K2", "openness/exact"), "static", (steps["exact"], sums_bytes)),
+    ]
+    kernels = []
+    for kid, name, line, key, route, (n_steps, nbytes) in rows:
+        bound_ms, side = bound(n_steps, nbytes)
+        kernels.append({
+            "name": name, "id": kid, "route": "cuda",
+            "source": f"neilpy_tpu_torch/csrc/{name}.cu",
+            "replaces": f"neilpy_tpu/ops/pallas_scan.py:{line}",
+            "launches": launches[kid], "max_abs_err": max_err[kid],
+            "ms": res[(*key, route)], "plain_ms": res[(*key, "plain")],
+            "bound_ms": bound_ms, "bound_by": side, "library_ms": None,
+            "ladder": key[1].split("/")[-1], "masked_ms": res[(*key,
+                                                              "masked")]})
+    routes = ("plain", "masked", "dynamic", "static")
+    exact_bound = {side: bound(steps["exact"], nbytes)[0] for side, nbytes in
+                   (("counts", counts_bytes), ("sums", sums_bytes))}
+    kernels[0]["exact"] = {"ms": {r: res[("K1", "exact", r)] for r in routes},
+                           "bound_ms": exact_bound["counts"]}
+    kernels[1]["exact"] = {
+        "ms_by_mode": {m: {r: res[("K2", f"{m}/exact", r)] for r in routes}
+                       for m in ("openness", "svf", "ternary")},
+        "bound_ms": exact_bound["sums"]}
+    kernels[1]["fast_static_ms"] = res[("K2", "openness/fast", "static")]
+    kernels[0]["fast_static_ms"] = res[("K1", "fast", "static")]
+    kernels[5]["ms_by_mode"] = {m: res[("K2", f"{m}/exact", "static")]
+                                for m in ("openness", "svf", "ternary")}
+    kernels[3]["shape"] = f"one {tuple(res['K4 block'])} haloed block of " \
+                          "8192^2, 2x2"
+    return kernels
 
 
 def main():
@@ -682,44 +1062,34 @@ def main():
     _build.load()
     emit(phase="build", seconds=time.perf_counter() - t0,
          library=str(lib.relative_to(HERE)),
-         ptxas=[ln for ln in lib.with_suffix(".log").read_text().splitlines()
-                if "registers" in ln or "spill" in ln])
+         ptxas=ptxas_summary(lib.with_suffix(".log").read_text()))
 
     max_err = kernel_vs_plain(cuda_scan, dev)
+    for kid, err in routes_vs_plain(cuda_scan, dev).items():
+        max_err[kid] = max(max_err.get(kid, 0), err)
     oracle_check(ntt, dev)
     with tempfile.TemporaryDirectory() as tmp:
         Z, dem = write_dem(ntt, tmp)
-        Zd, k1_launches, G, G_fast = main_path(ntt, cuda_scan, dev, tmp, Z,
+        Zd, main_counts, G, G_fast = main_path(ntt, cuda_scan, dev, tmp, Z,
                                                dem)
         counts = openness_path(ntt, cuda_scan, dev, tmp, Z, dem)
+    share = maskless_share(cuda_scan, Zd)
     sharded_counts, mesh, block_errs = sharded_path(ntt, cuda_scan, dev, Zd,
                                                     G, G_fast)
-    for kid, err in block_errs.items():
-        max_err[kid] = max(max_err[kid], err)
     del G, G_fast
-    res = timings(ntt, cuda_scan, Zd, mesh, card)
+    for kid, err in [*block_errs.items(),
+                     *full_size_vs_plain(cuda_scan, Zd).items()]:
+        max_err[kid] = max(max_err[kid], err)
+    res = timings(ntt, cuda_scan, Zd, mesh, card, share)
 
-    rows = [("K1", "openness_counts", "exact", 401, k1_launches),
-            ("K2", "openness_reduced", "openness", 856, counts["K2"]),
-            ("K3", "directional_extrema", "exact", 292, counts["K3"]),
-            ("K4", "openness_counts_block", "exact", 1121,
-             sharded_counts["K4"])]
-    kernels = [{
-        "name": name,
-        "route": "cuda",
-        "source": f"neilpy_tpu_torch/csrc/{name}.cu",
-        "replaces": f"neilpy_tpu/ops/pallas_scan.py:{line}",
-        "launches": launches,
-        "max_abs_err": max_err[kid],
-        "ms": res[(kid, label, "kernel")],
-        "plain_ms": res[(kid, label, "plain")],
-    } for kid, name, label, line, launches in rows]
-    kernels[1]["ms_by_mode"] = {m: res[("K2", m, "kernel")]
-                                for m in ("openness", "svf", "ternary")}
-    kernels[1]["plain_ms_by_mode"] = {m: res[("K2", m, "plain")]
-                                      for m in ("openness", "svf", "ternary")}
+    # each kernel's launches on the path that runs it
+    launches = {"K1": main_counts["K1"],
+                "K5/counts": main_counts["K5/counts"],
+                "K2": counts["K2"], "K3": counts["K3"],
+                "K5/reduced": counts["K5/reduced"],
+                "K4": sharded_counts["K4"]}
+    kernels = kernel_table(cuda_scan, res, launches, max_err)
     kernels[2]["origin_entry_launches"] = sharded_counts["K3"]
-    kernels[3]["shape"] = "one (4196, 4196) haloed block of 8192^2, 2x2"
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -107,28 +107,31 @@ def load():
     lib = ctypes.CDLL(str(build()))
     p = ctypes.c_void_p
     i = ctypes.c_int
-    hw = (ctypes.c_longlong, ctypes.c_longlong)
+    ll = ctypes.c_longlong
+    f = ctypes.c_float
+    hw = (ll, ll)
+    # every entry starts (Z, H, W, ladder, scales, K, Rmax, dense, allow)
+    # and ends with the stream
+    head = [p, *hw, p, p, i, i, i, ctypes.c_uint]
+    plan = [ll, ll, i, ll, ll, i]  # rlo, rhi, rmasks, clo, chi, cmasks
     entries = {
-        # (Z, H, W, ladder, scales, K, Rmax, T, num_pos, num_neg, stream)
-        "openness_counts_launch": [p, *hw, p, p, i, i, ctypes.c_float, p, p,
-                                   p],
-        # (Z, Hh, Wh, ladder, scales, K, Rmax, R, org_r, org_c, GH, GW, T,
-        #  num_pos, num_neg, stream)
-        "openness_counts_block_launch": [p, *hw, p, p, i, i, i, *hw, *hw,
-                                         ctypes.c_float, p, p, p],
-        # (Z, H, W, ladder, scales, K, Rmax, mx, mn, stream)
-        "directional_extrema_launch": [p, *hw, p, p, i, i, p, p, p],
-        # (Z, H, W, ladder, scales, K, Rmax, org_r, org_c, GH, GW, mx, mn,
-        #  stream)
-        "directional_extrema_global_launch": [p, *hw, p, p, i, i, *hw, *hw,
-                                              p, p, p],
-        # (Z, H, W, ladder, scales, K, Rmax, mode, neg_mode, T,
-        #  out0, out1, code, stream)
-        "openness_reduced_launch": [p, *hw, p, p, i, i, i, i,
-                                    ctypes.c_float, p, p, p, p],
+        # (..., T, num_pos, num_neg)
+        "openness_counts_launch": [*head, f, p, p],
+        # (..., plan, T, num_pos, num_neg)
+        "openness_counts_plan_launch": [*head, *plan, f, p, p],
+        # (..., R, org_r, org_c, GH, GW, T, num_pos, num_neg)
+        "openness_counts_block_launch": [*head, i, *hw, *hw, f, p, p],
+        # (..., mx, mn)
+        "directional_extrema_launch": [*head, p, p],
+        # (..., org_r, org_c, GH, GW, mx, mn)
+        "directional_extrema_global_launch": [*head, *hw, *hw, p, p],
+        # (..., mode, neg_mode, T, out0, out1, code)
+        "openness_reduced_launch": [*head, i, i, f, p, p, p],
+        # (..., plan, mode, neg_mode, T, out0, out1, code)
+        "openness_reduced_plan_launch": [*head, *plan, i, i, f, p, p, p],
     }
     for name, argtypes in entries.items():
         fn = getattr(lib, name)
-        fn.argtypes = argtypes
+        fn.argtypes = [*argtypes, p]
         fn.restype = ctypes.c_int
     return lib

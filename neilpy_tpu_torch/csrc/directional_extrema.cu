@@ -26,8 +26,16 @@
 // in global coordinates (ladder.cuh:direction_extrema_global), for every
 // pixel of the block, halo pixels too, as the XLA function
 // neilpy_tpu/ops/visibility.py:directional_ratio_extrema(origin=) does.
-// The origin is a template parameter, so the whole-raster entry compiles
-// to the same code as before.
+// The origin is a template parameter, so the whole-raster entry carries
+// no global test.
+//
+// Routing, as _extrema_kernel (pallas_scan.py:307-341): each 32x8 thread
+// block runs the maskless ladder of ladder.cuh in the directions that are
+// safe for it (read window on the array and, for the origin entry, inside
+// the global raster) and the masked ladder in the others, a block-uniform
+// choice.  K3 has no static form: the JAX package's region plan serves K1
+// and K2 only.  The maskless body may write +0 where the masked one wrote
+// -0 (ladder.cuh), so its planes equal the plain version's by value.
 
 #include "ladder.cuh"
 
@@ -35,14 +43,19 @@ namespace {
 
 using namespace neilpy_ladder;
 
-template <bool kGlobal>
+template <bool kGlobal, bool kDense>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
 directional_extrema_kernel(const float* __restrict__ Z, int64_t H,
                            int64_t W, const int* __restrict__ ladder,
                            const float* __restrict__ scales, int K, int Rmax,
-                           int64_t org_r, int64_t org_c, int64_t GH,
-                           int64_t GW, float* __restrict__ mx_out,
+                           unsigned allow, int64_t org_r,
+                           int64_t org_c, int64_t GH, int64_t GW,
+                           float* __restrict__ mx_out,
                            float* __restrict__ mn_out) {
+  const DynamicRoute route{
+      kGlobal ? safe_directions_global(allow, Rmax, H, W, 0, 0, org_r, org_c,
+                                       GH, GW)
+              : safe_directions(allow, Rmax, H, W)};
   const int64_t c = (int64_t)blockIdx.x * kBlockX + threadIdx.x;
   const int64_t r = (int64_t)blockIdx.y * kBlockY + threadIdx.y;
   if (r >= H || c >= W) return;
@@ -52,32 +65,49 @@ directional_extrema_kernel(const float* __restrict__ Z, int64_t H,
   for (int d = 0; d < 8; ++d) {
     float mx, mn;
     if constexpr (kGlobal) {
-      direction_extrema_global(px, GlobalPos{org_r + r, org_c + c, GH, GW},
-                               d, W, ladder, scales, K, Rmax, mx, mn);
+      direction_extrema_global_routed<kDense>(
+          px, GlobalPos{org_r + r, org_c + c, GH, GW}, d, W, ladder, scales,
+          K, Rmax, route, mx, mn);
     } else {
-      direction_extrema(px, d, W, ladder, scales, K, Rmax, mx, mn);
+      direction_extrema_routed<kDense>(px, d, W, ladder, scales, K, Rmax,
+                                       route, mx, mn);
     }
     mx_out[d * plane + px.p] = mx;
     mn_out[d * plane + px.p] = mn;
   }
 }
 
+template <bool kGlobal, bool kDense>
+int launch(const float* Z, long long H, long long W, const int* ladder,
+           const float* scales, int K, int Rmax, unsigned allow,
+           long long org_r, long long org_c, long long GH, long long GW,
+           float* mx, float* mn, cudaStream_t stream) {
+  directional_extrema_kernel<kGlobal, kDense>
+      <<<grid_for(H, W), dim3(kBlockX, kBlockY), 0, stream>>>(
+          Z, (int64_t)H, (int64_t)W, ladder, scales, K, Rmax, allow,
+          (int64_t)org_r, (int64_t)org_c, (int64_t)GH, (int64_t)GW, mx, mn);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // C entry, bound with ctypes (neilpy_tpu_torch/ops/cuda_scan.py).  All
 // pointers are device pointers; mx and mn hold 8 * H * W floats each;
-// ``stream`` is a cudaStream_t.  Launches on that stream, does not
-// synchronise, and returns cudaGetLastError().
+// ``dense`` says the ladder is 1..K; ``allow`` as in
+// openness_counts_launch; ``stream`` is a cudaStream_t.  Launches on
+// that stream, does not synchronise, and returns cudaGetLastError().
 extern "C" int directional_extrema_launch(const float* Z, long long H,
                                           long long W, const int* ladder,
                                           const float* scales, int K,
-                                          int Rmax, float* mx, float* mn,
+                                          int Rmax, int dense,
+                                          unsigned allow,
+                                          float* mx, float* mn,
                                           void* stream) {
-  directional_extrema_kernel<false>
-      <<<grid_for(H, W), dim3(kBlockX, kBlockY), 0, (cudaStream_t)stream>>>(
-          Z, (int64_t)H, (int64_t)W, ladder, scales, K, Rmax, 0, 0, H, W,
-          mx, mn);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  return dense ? launch<false, true>(Z, H, W, ladder, scales, K, Rmax, allow,
+                                     0, 0, H, W, mx, mn, s)
+               : launch<false, false>(Z, H, W, ladder, scales, K, Rmax, allow,
+                                      0, 0, H, W, mx, mn, s);
 }
 
 // The same with a global origin: pixel (0, 0) of Z lies at (org_r, org_c)
@@ -85,11 +115,12 @@ extern "C" int directional_extrema_launch(const float* Z, long long H,
 // raster).
 extern "C" int directional_extrema_global_launch(
     const float* Z, long long H, long long W, const int* ladder,
-    const float* scales, int K, int Rmax, long long org_r, long long org_c,
-    long long GH, long long GW, float* mx, float* mn, void* stream) {
-  directional_extrema_kernel<true>
-      <<<grid_for(H, W), dim3(kBlockX, kBlockY), 0, (cudaStream_t)stream>>>(
-          Z, (int64_t)H, (int64_t)W, ladder, scales, K, Rmax,
-          (int64_t)org_r, (int64_t)org_c, (int64_t)GH, (int64_t)GW, mx, mn);
-  return (int)cudaGetLastError();
+    const float* scales, int K, int Rmax, int dense, unsigned allow,
+    long long org_r, long long org_c, long long GH, long long GW, float* mx,
+    float* mn, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  return dense ? launch<true, true>(Z, H, W, ladder, scales, K, Rmax, allow,
+                                    org_r, org_c, GH, GW, mx, mn, s)
+               : launch<true, false>(Z, H, W, ladder, scales, K, Rmax, allow,
+                                     org_r, org_c, GH, GW, mx, mn, s);
 }

@@ -1,8 +1,10 @@
 // The per-direction scan ladder shared by the port's openness kernels:
 // openness_counts.cu (K1), openness_reduced.cu (K2),
-// directional_extrema.cu (K3) and openness_counts_block.cu (K4).  Keeping
-// it in one place means the kernels cannot drift apart; each inlines it,
-// so the code is the same as if it were written out in every kernel.
+// directional_extrema.cu (K3), openness_counts_block.cu (K4) and the
+// static region plan (K5: openness_counts_plan.cu, openness_reduced_plan.cu).
+// Keeping it in one place means the kernels cannot drift apart; each
+// inlines it, so the code is the same as if it were written out in every
+// kernel.
 //
 // Replaces the TPU ladder neilpy_tpu/ops/pallas_scan.py:_extrema_ladder.
 // For pixel p and direction d it keeps the running max mx and min mn over
@@ -12,17 +14,46 @@
 //     scale[d][k] = f32(1 / (cellsize * w_d)) / f32(L_k)
 //
 // (a host table, ops/cuda_scan.py:_ladder_scales, so no division happens
-// here and the product matches pallas_scan.py:166,173 bit for bit).  NaN
-// reads (nodata holes) fail both compares and are skipped; the first step
-// off the array ends the ladder, which skips the rest the way the TPU
-// kernel's NaN pad does.  If the last ladder step p + d*Rmax leaves the
-// raster, mx >= 0 and mn <= 0 are enforced (the reference's edge
-// replication, pallas_scan.py:219-227).
+// here and the product matches pallas_scan.py:166,173 bit for bit).
 //
-// Two forms, chosen at compile time by the kernel: direction_extrema for a
-// whole raster (K1, K2, K3), and direction_extrema_global for a shard block
-// with its global origin (K4, K3's origin entry), where the array's edge
-// and the raster's edge differ.
+// Two bodies, as _extrema_ladder(nan_safe=False / True):
+//
+// - the masked ladder (scan_ladder + an epilogue): NaN reads (nodata
+//   holes) fail both compares and are skipped; the first step off the
+//   array ends the ladder, which skips the rest the way the TPU kernel's
+//   NaN pad does; if the last step p + d*Rmax leaves the raster, mx >= 0
+//   and mn <= 0 are enforced (the reference's edge replication,
+//   pallas_scan.py:219-227).  Valid everywhere.
+// - the maskless ladder (scan_ladder_safe, pallas_scan.py:173-176): for a
+//   (thread block, direction) pair whose every read lies on the array and
+//   whose last step stays on the raster.  It has no step limit, no break
+//   and no epilogue; on the dense exact ladder (L_k = k + 1) it loads no
+//   ladder entry; and it keeps the extrema with fmaxf / fminf instead of
+//   two compare-selects.  fmaxf / fminf return the other operand when one
+//   is NaN, so a NaN read (a nodata hole) is skipped exactly as the
+//   compare-selects skip it, and the running extrema never become NaN:
+//   unlike the TPU kernel, whose maskless body uses a NaN-propagating
+//   maximum and so needs a per-tile NaN grid (pallas_scan.py:258), this
+//   one needs no NaN test at all.  fmaxf may return +0 where the
+//   compare-select kept -0 (a ratio of -0 against +0), so K3's mx / mn
+//   planes equal the masked body's by value, not always by bit; K1, K2
+//   and K4 only compare or add the extrema and are bit-identical.
+//
+// Which body a pair takes is decided per 32x8 thread block, so it is
+// uniform across the block and no warp diverges (the counterpart of
+// _dir_is_safe, pallas_scan.py:231-255): window_on tests the block's read
+// window in direction d up to Rmax against the array and, for a shard
+// block, the global raster.  Routes: DynamicRoute carries the safe
+// directions as a run-time bit mask (K1-K4), StaticRoute<kUnsafe> as a
+// compile-time one (K5's regions), so its masked/maskless choice folds
+// away.  Every entry takes a mask ``allow`` of the directions that may
+// take the maskless body at all: 0xFF on every call the package makes, 0
+// to run the masked body everywhere (a same-launch baseline for timing).
+//
+// Two forms of the masked body, chosen at compile time by the kernel:
+// direction_extrema for a whole raster (K1, K2, K3, K5), and
+// direction_extrema_global for a shard block with its global origin (K4,
+// K3's origin entry), where the array's edge and the raster's edge differ.
 //
 // Every multiply and add is written with __fmul_rn / __fadd_rn /
 // __fsub_rn, which nvcc never fuses into an FMA; the build passes
@@ -149,6 +180,178 @@ __device__ __forceinline__ void direction_extrema_global(
   const int64_t sr = g.r + (int64_t)dir_dr(d) * Rmax;
   const int64_t sc = g.c + (int64_t)dir_dc(d) * Rmax;
   if (sr < 0 || sr >= g.H || sc < 0 || sc >= g.W) clamp_out_of_range(mx, mn);
+}
+
+// ----------------------------------------------------------------------
+// the maskless ladder and its block-uniform routing
+// ----------------------------------------------------------------------
+
+// Running mx, mn of direction d over every ladder step, for a pair that
+// window_on proved safe: every read lies on the array (a NaN read is
+// skipped by fmaxf / fminf, as by the masked body's compares).  kDense:
+// the ladder is 1..K, so L = k + 1 and no entry is loaded.
+template <bool kDense>
+__device__ __forceinline__ void scan_ladder_safe(
+    const Pixel& px, int d, int64_t W, const int* __restrict__ ladder,
+    const float* __restrict__ scales, int K, float& mx, float& mn) {
+  const int64_t step = (int64_t)dir_dr(d) * W + dir_dc(d);
+  mx = -CUDART_INF_F;
+  mn = CUDART_INF_F;
+  // pointers that advance by one entry, so no 64-bit index arithmetic per
+  // step (the first build spent about half of the step's 12 SASS
+  // instructions on the addresses of Z[p + d*L] and scale[d][k])
+  const float* __restrict__ q = px.zp;
+  const float* __restrict__ sc = scales + d * K;
+  for (int k = 0; k < K; ++k, ++sc) {
+    if constexpr (kDense) {
+      q += step;
+    } else {
+      q = px.zp + step * __ldg(ladder + k);
+    }
+    const float src = __ldg(q);
+    const float ratio = __fmul_rn(__fsub_rn(src, px.core), __ldg(sc));
+    mx = fmaxf(mx, ratio);
+    mn = fminf(mn, ratio);
+  }
+}
+
+// Does the read window of the thread block whose first pixel is (r0, c0)
+// stay inside [0, H) x [0, W) in direction d, for every step up to Rmax?
+// The window is the whole 32x8 block shifted by d*1 .. d*Rmax, as
+// _dir_is_safe takes the whole tile: a block that overhangs the array is
+// unsafe in every direction.
+__device__ __forceinline__ bool window_on(int64_t r0, int64_t c0, int d,
+                                          int Rmax, int64_t H, int64_t W) {
+  const int64_t dr = (int64_t)dir_dr(d) * Rmax;
+  const int64_t dc = (int64_t)dir_dc(d) * Rmax;
+  return r0 + (dr < 0 ? dr : 0) >= 0 &&
+         r0 + kBlockY + (dr > 0 ? dr : 0) <= H &&
+         c0 + (dc < 0 ? dc : 0) >= 0 &&
+         c0 + kBlockX + (dc > 0 ? dc : 0) <= W;
+}
+
+// This thread block's first pixel in the array: the grid starts at
+// (row0, col0) of the array (K4's grid covers the core, row0 = col0 = R).
+__device__ __forceinline__ int64_t block_row0(int64_t row0) {
+  return row0 + (int64_t)blockIdx.y * kBlockY;
+}
+__device__ __forceinline__ int64_t block_col0(int64_t col0) {
+  return col0 + (int64_t)blockIdx.x * kBlockX;
+}
+
+// Bit d set: direction d is safe for this thread block on a whole raster
+// (H, W) and allowed by ``allow``.  Block-uniform: computed from blockIdx
+// only.
+__device__ __forceinline__ unsigned safe_directions(unsigned allow, int Rmax,
+                                                    int64_t H, int64_t W) {
+  const int64_t r0 = block_row0(0), c0 = block_col0(0);
+  unsigned safe = 0u;
+#pragma unroll
+  for (int d = 0; d < 8; ++d)
+    safe |= window_on(r0, c0, d, Rmax, H, W) ? (1u << d) : 0u;
+  return safe & allow;
+}
+
+// The same for a shard block: the window must lie on the (H, W) array and,
+// shifted by the array's global origin (org_r, org_c) of its pixel (0, 0),
+// inside the (GH, GW) raster, so the last step needs no epilogue.
+__device__ __forceinline__ unsigned safe_directions_global(
+    unsigned allow, int Rmax, int64_t H, int64_t W, int64_t row0,
+    int64_t col0, int64_t org_r, int64_t org_c, int64_t GH, int64_t GW) {
+  const int64_t r0 = block_row0(row0), c0 = block_col0(col0);
+  unsigned safe = 0u;
+#pragma unroll
+  for (int d = 0; d < 8; ++d) {
+    const bool ok = window_on(r0, c0, d, Rmax, H, W) &&
+                    window_on(org_r + r0, org_c + c0, d, Rmax, GH, GW);
+    safe |= ok ? (1u << d) : 0u;
+  }
+  return safe & allow;
+}
+
+// A route says, per direction, which body runs.
+struct DynamicRoute {
+  unsigned safe;  // bit d: direction d takes the maskless body
+  __device__ __forceinline__ bool operator()(int d) const {
+    return (safe >> d) & 1u;
+  }
+};
+
+template <unsigned kUnsafe>
+struct StaticRoute {
+  __device__ __forceinline__ constexpr bool operator()(int d) const {
+    return !((kUnsafe >> d) & 1u);
+  }
+};
+
+// mx, mn of direction d on a whole raster, by the route's body.
+template <bool kDense, class Route>
+__device__ __forceinline__ void direction_extrema_routed(
+    const Pixel& px, int d, int64_t W, const int* __restrict__ ladder,
+    const float* __restrict__ scales, int K, int Rmax, Route route,
+    float& mx, float& mn) {
+  if (route(d)) {
+    scan_ladder_safe<kDense>(px, d, W, ladder, scales, K, mx, mn);
+  } else {
+    direction_extrema(px, d, W, ladder, scales, K, Rmax, mx, mn);
+  }
+}
+
+// mx, mn of direction d on a shard block, by the route's body.
+template <bool kDense, class Route>
+__device__ __forceinline__ void direction_extrema_global_routed(
+    const Pixel& px, const GlobalPos& g, int d, int64_t W,
+    const int* __restrict__ ladder, const float* __restrict__ scales, int K,
+    int Rmax, Route route, float& mx, float& mn) {
+  if (route(d)) {
+    scan_ladder_safe<kDense>(px, d, W, ladder, scales, K, mx, mn);
+  } else {
+    direction_extrema_global(px, g, d, W, ladder, scales, K, Rmax, mx, mn);
+  }
+}
+
+// K5's region plan for one axis (ops/cuda_scan.py:region_plan): blocks
+// starting before lo_end form the low strip, from hi_start on the high
+// strip, the rest the interior; masks packs the three segments' unsafe
+// directions, one byte each.
+__device__ __forceinline__ unsigned segment_unsafe(int64_t start,
+                                                   int64_t lo_end,
+                                                   int64_t hi_start,
+                                                   unsigned masks) {
+  const int seg = start < lo_end ? 0 : (start < hi_start ? 1 : 2);
+  return (masks >> (8 * seg)) & 0xFFu;
+}
+
+// Call body(StaticRoute<M>{}) for the block's unsafe set M, one of the
+// ten the plan makes: the 3x3 regions (row strip {0,1,2} or {4,5,6},
+// column strip {0,6,7} or {2,3,4}, their unions, none) and all eight.
+// The switch is block-uniform; anything else takes the all-masked body.
+template <class Body>
+__device__ __forceinline__ void with_static_route(unsigned unsafe,
+                                                  Body&& body) {
+  switch (unsafe) {
+    case 0x00u: body(StaticRoute<0x00u>{}); break;
+    case 0x07u: body(StaticRoute<0x07u>{}); break;
+    case 0x70u: body(StaticRoute<0x70u>{}); break;
+    case 0xC1u: body(StaticRoute<0xC1u>{}); break;
+    case 0x1Cu: body(StaticRoute<0x1Cu>{}); break;
+    case 0xC7u: body(StaticRoute<0xC7u>{}); break;
+    case 0x1Fu: body(StaticRoute<0x1Fu>{}); break;
+    case 0xF1u: body(StaticRoute<0xF1u>{}); break;
+    case 0x7Cu: body(StaticRoute<0x7Cu>{}); break;
+    default: body(StaticRoute<0xFFu>{}); break;
+  }
+}
+
+// The unsafe set of this thread block under K5's plan: the union of its
+// row and column segments' sets and of the directions ``allow`` withholds
+// (a set outside the ten takes the all-masked body).
+__device__ __forceinline__ unsigned plan_unsafe(unsigned allow, int64_t rlo,
+                                                int64_t rhi, unsigned rmasks,
+                                                int64_t clo, int64_t chi,
+                                                unsigned cmasks) {
+  return segment_unsafe(block_row0(0), rlo, rhi, rmasks) |
+         segment_unsafe(block_col0(0), clo, chi, cmasks) | (~allow & 0xFFu);
 }
 
 // The openness difference diff = atan(a) - atan(b), a = -mn, b = mx,

@@ -24,6 +24,15 @@
 // K1's, so the counts equal the plain PyTorch version
 // (ops/cuda_scan.py:openness_counts_block_torch) on the card.
 //
+// Routing, as K1's dynamic branch with a traced origin: each 32x8 thread
+// block of the core runs the maskless ladder of ladder.cuh in the
+// directions whose read window lies on the haloed block and, shifted to
+// global coordinates, inside the raster (the global test of
+// pallas_scan.py:_dir_is_safe, :252-255), and the masked ladder in the
+// others; a block-uniform choice.  The halo's NaN beyond the raster lies
+// off the global raster, so no maskless pair reads it.  K4 has no
+// static form: the JAX package's region plan is single-device only.
+//
 // What bounds it on this card: K1's ladder, instruction-issue bound
 // (openness_counts.cu), at about R loads and 4 flops per step; the
 // epilogue's 64-bit global test runs once per direction, not per step.
@@ -36,16 +45,21 @@ namespace {
 
 using namespace neilpy_ladder;
 
+template <bool kDense>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
 openness_counts_block_kernel(const float* __restrict__ Z, int64_t Hh,
                              int64_t Wh, const int* __restrict__ ladder,
                              const float* __restrict__ scales, int K,
-                             int Rmax, int R, int64_t org_r, int64_t org_c,
-                             int64_t GH, int64_t GW, float T,
+                             int Rmax, unsigned allow,
+                             int R, int64_t org_r, int64_t org_c, int64_t GH,
+                             int64_t GW, float T,
                              uint8_t* __restrict__ num_pos,
                              uint8_t* __restrict__ num_neg) {
   const int64_t bh = Hh - 2 * (int64_t)R;
   const int64_t bw = Wh - 2 * (int64_t)R;
+  // the array's pixel (0, 0) lies at (org_r - R, org_c - R) of the raster
+  const DynamicRoute route{safe_directions_global(
+      allow, Rmax, Hh, Wh, R, R, org_r - R, org_c - R, GH, GW)};
   const int64_t c = (int64_t)blockIdx.x * kBlockX + threadIdx.x;
   const int64_t r = (int64_t)blockIdx.y * kBlockY + threadIdx.y;
   if (r >= bh || c >= bw) return;
@@ -56,7 +70,8 @@ openness_counts_block_kernel(const float* __restrict__ Z, int64_t Hh,
 #pragma unroll
   for (int d = 0; d < 8; ++d) {
     float mx, mn;
-    direction_extrema_global(px, g, d, Wh, ladder, scales, K, Rmax, mx, mn);
+    direction_extrema_global_routed<kDense>(px, g, d, Wh, ladder, scales, K,
+                                            Rmax, route, mx, mn);
     bool gt, lt;
     classify(mx, mn, T, gt, lt);
     n_pos += gt ? 1 : 0;
@@ -66,24 +81,37 @@ openness_counts_block_kernel(const float* __restrict__ Z, int64_t Hh,
   num_neg[r * bw + c] = (uint8_t)n_neg;
 }
 
+template <bool kDense>
+int launch(const float* Z, long long Hh, long long Wh, const int* ladder,
+           const float* scales, int K, int Rmax, unsigned allow, int R,
+           long long org_r, long long org_c, long long GH, long long GW,
+           float T, uint8_t* num_pos, uint8_t* num_neg, cudaStream_t stream) {
+  openness_counts_block_kernel<kDense>
+      <<<grid_for(Hh - 2LL * R, Wh - 2LL * R), dim3(kBlockX, kBlockY), 0,
+         stream>>>(Z, (int64_t)Hh, (int64_t)Wh, ladder, scales, K, Rmax, allow,
+                   R, (int64_t)org_r, (int64_t)org_c, (int64_t)GH,
+                   (int64_t)GW, T, num_pos, num_neg);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // C entry, bound with ctypes (neilpy_tpu_torch/ops/cuda_scan.py).  Z is
 // the (Hh, Wh) haloed block with halo R; (org_r, org_c) the global origin
 // of its core and (GH, GW) the global shape; num_pos and num_neg hold
-// (Hh - 2R) * (Wh - 2R) bytes each.  All pointers are device pointers;
-// ``stream`` is a cudaStream_t.  Launches on that stream, does not
-// synchronise, and returns cudaGetLastError().
+// (Hh - 2R) * (Wh - 2R) bytes each; ``dense`` says the ladder is 1..K;
+// ``allow`` as in openness_counts_launch.
+// All pointers are device pointers; ``stream`` is a cudaStream_t.
+// Launches on that stream, does not synchronise, and returns
+// cudaGetLastError().
 extern "C" int openness_counts_block_launch(
     const float* Z, long long Hh, long long Wh, const int* ladder,
-    const float* scales, int K, int Rmax, int R, long long org_r,
-    long long org_c, long long GH, long long GW, float T,
-    unsigned char* num_pos, unsigned char* num_neg, void* stream) {
-  openness_counts_block_kernel<<<grid_for(Hh - 2LL * R, Wh - 2LL * R),
-                                 dim3(kBlockX, kBlockY), 0,
-                                 (cudaStream_t)stream>>>(
-      Z, (int64_t)Hh, (int64_t)Wh, ladder, scales, K, Rmax, R,
-      (int64_t)org_r, (int64_t)org_c, (int64_t)GH, (int64_t)GW, T, num_pos,
-      num_neg);
-  return (int)cudaGetLastError();
+    const float* scales, int K, int Rmax, int dense, unsigned allow,
+    int R, long long org_r, long long org_c, long long GH, long long GW,
+    float T, unsigned char* num_pos, unsigned char* num_neg, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  return dense ? launch<true>(Z, Hh, Wh, ladder, scales, K, Rmax, allow, R,
+                              org_r, org_c, GH, GW, T, num_pos, num_neg, s)
+               : launch<false>(Z, Hh, Wh, ladder, scales, K, Rmax, allow, R,
+                               org_r, org_c, GH, GW, T, num_pos, num_neg, s);
 }

@@ -1,0 +1,79 @@
+// K5 for the fused reductions: the static boundary plan of K2, for NVIDIA
+// Hopper (sm_90a).
+//
+// Replaces the TPU's 9-patch launch plan as _reduced_call runs it with
+// specialize=True (the default for the exact ladder of openness_pallas,
+// skyview_pallas and ternary_pallas): neilpy_tpu/ops/pallas_scan.py:1017-
+// 1041 -> _region_calls, with _reduced_kernel's static branch
+// (pallas_scan.py:963-978) as the region body.  The plan, the one-launch
+// design and the route mask ``allow`` are those of
+// openness_counts_plan.cu; the
+// per-pixel body is K2's (openness_reduced.cuh), so the outputs equal K2's
+// bit for bit and the plain version's within K2's tolerances.
+//
+// What bounds it on this card: K2's ladder, instruction-issue bound
+// (openness_reduced.cu).
+
+#include "openness_reduced.cuh"
+
+namespace {
+
+using namespace neilpy_ladder;
+
+template <int kMode, bool kNegMode, bool kDense>
+__global__ void __launch_bounds__(kBlockX * kBlockY)
+openness_reduced_plan_kernel(const float* __restrict__ Z, int64_t H,
+                             int64_t W, const int* __restrict__ ladder,
+                             const float* __restrict__ scales, int K,
+                             int Rmax, unsigned allow,
+                             int64_t rlo, int64_t rhi, unsigned rmasks,
+                             int64_t clo, int64_t chi, unsigned cmasks,
+                             float T, float* __restrict__ out0,
+                             float* __restrict__ out1,
+                             uint16_t* __restrict__ code) {
+  const unsigned unsafe =
+      plan_unsafe(allow, rlo, rhi, rmasks, clo, chi, cmasks);
+  const int64_t c = (int64_t)blockIdx.x * kBlockX + threadIdx.x;
+  const int64_t r = (int64_t)blockIdx.y * kBlockY + threadIdx.y;
+  if (r >= H || c >= W) return;
+  const Pixel px = make_pixel(Z, H, W, r, c);
+  with_static_route(unsafe, [&](auto route) {
+    reduced_pixel<kMode, kNegMode, kDense>(px, W, ladder, scales, K, Rmax,
+                                           T, route, out0, out1, code);
+  });
+}
+
+template <int kMode, bool kNegMode, bool kDense>
+struct Launch {
+  static int run(const float* Z, long long H, long long W, const int* ladder,
+                 const float* scales, int K, int Rmax, unsigned allow,
+                 long long rlo, long long rhi, unsigned rmasks, long long clo,
+                 long long chi, unsigned cmasks, float T, float* out0,
+                 float* out1, uint16_t* code, cudaStream_t stream) {
+    openness_reduced_plan_kernel<kMode, kNegMode, kDense>
+        <<<grid_for(H, W), dim3(kBlockX, kBlockY), 0, stream>>>(
+            Z, (int64_t)H, (int64_t)W, ladder, scales, K, Rmax, allow,
+            (int64_t)rlo, (int64_t)rhi, rmasks, (int64_t)clo, (int64_t)chi,
+            cmasks, T, out0, out1, code);
+    return (int)cudaGetLastError();
+  }
+};
+
+}  // namespace
+
+// C entry, bound with ctypes (neilpy_tpu_torch/ops/cuda_scan.py).  As
+// openness_reduced_launch, plus the plan of openness_counts_plan_launch
+// (``rlo``, ``rhi``, ``rmasks``, ``clo``, ``chi``, ``cmasks``).  Launches
+// on ``stream``, does not synchronise, and returns cudaGetLastError(), or
+// cudaErrorInvalidValue for an unknown mode.
+extern "C" int openness_reduced_plan_launch(
+    const float* Z, long long H, long long W, const int* ladder,
+    const float* scales, int K, int Rmax, int dense, unsigned allow,
+    long long rlo, long long rhi, int rmasks, long long clo, long long chi,
+    int cmasks, int mode, int neg_mode, float T, float* out0, float* out1,
+    unsigned short* code, void* stream) {
+  return dispatch_mode<Launch>(mode, neg_mode, dense, Z, H, W, ladder,
+                               scales, K, Rmax, allow, rlo, rhi,
+                               (unsigned)rmasks, clo, chi, (unsigned)cmasks,
+                               T, out0, out1, code, (cudaStream_t)stream);
+}

@@ -21,7 +21,28 @@ are skipped); an out-of-range last step clamps ``mx >= 0`` and
 - ``openness_counts_block`` (K4, ``csrc/openness_counts_block.cu``,
   replaces ``_counts_kernel`` as ``openness_counts_pallas_block`` launches
   it): K1's counts for the core of one shard block that carries an R-wide
-  halo, with the epilogue decided in global coordinates.
+  halo, with the epilogue decided in global coordinates;
+- ``openness_counts_plan_cuda`` / ``openness_reduced_plan_cuda`` (K5,
+  ``csrc/openness_counts_plan.cu`` and ``csrc/openness_reduced_plan.cu``,
+  replace the static 9-patch plan ``_region_calls``): K1's and K2's
+  outputs with each boundary region's unsafe directions fixed at compile
+  time.
+
+Two ladder bodies (``ladder.cuh``): the masked one, valid everywhere, and
+a maskless one for a (thread block, direction) pair whose every read is
+real terrain on the raster.  Which pair takes which is decided per 32x8
+thread block (``BLOCK``): dynamically from the block's position
+(``dynamic_safe``, the counterpart of ``_dir_is_safe``; K1-K4), or by the
+static region plan (``region_plan``, ``_axis_segments``; K5).  Both
+bodies skip a NaN read (the maskless one keeps its extrema with
+``fmaxf`` / ``fminf``, which return the non-NaN operand), so nodata holes
+need no routing of their own: the JAX package's per-tile NaN grid exists
+because its maskless maximum propagates NaN.  ``specialize`` picks the
+route as in the JAX package (``_resolve_specialize``): ``None`` is the
+static plan for the exact ladder and the dynamic route for ``fast``.  The
+plain versions run the same choice on any device when given ``route``,
+with ``torch.fmax`` / ``torch.fmin`` on the maskless pairs and +inf read
+off the array there, so a pair wrongly marked safe shows on the CPU.
 
 A shard block (K4, and K3 given ``origin``) separates two limits: the
 ladder ends at the edge of the block in memory, and the epilogue tests
@@ -32,15 +53,16 @@ All versions round exactly like the Pallas kernels: the ratio is a
 subtract and a multiply by ``scale[d, k] = f32(1/(cellsize*w_d)) /
 f32(L_k)``, a host table they share (``_ladder_scales``), and no
 multiply-add is fused.  So extrema, counts and ternary codes are equal
-between kernel and plain version on the card, and equal to the Pallas
-kernels (interpret mode) on the CPU.  Openness calls ``atanf`` /
-``torch.atan`` where the TPU kernel has its own polynomial, so it agrees
-within a tolerance (PERF.md).
+between kernel and plain version on the card (extrema by value: the
+maskless body may give +0 for -0), and equal to the Pallas kernels
+(interpret mode) on the CPU.  Openness calls ``atanf`` / ``torch.atan``
+where the TPU kernel has its own polynomial, so it agrees within a
+tolerance (PERF.md).
 
 Each dispatcher (``openness_counts``, ``directional_extrema``,
-``openness_reduced``, ``openness_counts_block``) picks by the tensor's device: the kernel for a
-CUDA tensor, the plain version for a CPU tensor.  Nothing falls back: a
-kernel that does not build or launch raises.
+``openness_reduced``, ``openness_counts_block``) picks by the tensor's
+device: a kernel for a CUDA tensor, the plain version for a CPU tensor.
+Nothing falls back: a kernel that does not build or launch raises.
 """
 
 from __future__ import annotations
@@ -56,14 +78,18 @@ from ..core.codes import progressive_window
 from ..core.shift import OFFSETS, STEP_LENGTH
 
 __all__ = ["openness_counts", "openness_counts_torch",
-           "openness_counts_cuda", "geomorphons_cuda",
+           "openness_counts_cuda", "openness_counts_plan_cuda",
+           "geomorphons_cuda",
            "openness_counts_block", "openness_counts_block_torch",
            "openness_counts_block_cuda",
            "directional_extrema", "directional_extrema_torch",
            "directional_extrema_cuda",
            "openness_reduced", "openness_reduced_torch",
-           "openness_reduced_cuda", "openness_cuda", "skyview_cuda",
-           "ternary_cuda", "openness_degrees", "skyview_from_sum"]
+           "openness_reduced_cuda", "openness_reduced_plan_cuda",
+           "openness_cuda", "skyview_cuda",
+           "ternary_cuda", "openness_degrees", "skyview_from_sum",
+           "BLOCK", "region_plan", "dynamic_safe", "plan_safe",
+           "route_table"]
 
 # K2's modes, as the C entry numbers them
 _MODES = {"openness": 0, "svf": 1, "ternary": 2}
@@ -121,10 +147,193 @@ def _check_mode(mode):
 
 
 # ----------------------------------------------------------------------
+# routing: which (thread block, direction) pairs take the maskless ladder
+# ----------------------------------------------------------------------
+# (rows, cols) of one thread block: ladder.cuh's kBlockY x kBlockX
+BLOCK = (8, 32)
+# the kernels' route mask ``allow``: bit d lets direction d take the
+# maskless ladder where it is safe.  0 runs the masked ladder everywhere,
+# as the kernels did before the maskless ladder (chip_smoke.py's timing
+# baseline); the outputs do not change.
+_ALLOW_MASKLESS = 0xFF
+
+
+def _resolve_specialize(specialize, interpret, fast):
+    """Resolve ``specialize=None`` as the JAX package does
+    (pallas_scan.py:_resolve_specialize): the static region plan for a
+    compiled exact ladder, the dynamic route in interpret mode and for the
+    ``fast`` ladder; an explicit value passes through.  The kernels are
+    always compiled (``interpret=False``); a CPU tensor runs the plain
+    version, which no route changes."""
+    if specialize is None:
+        return (not interpret) and not fast
+    return bool(specialize)
+
+
+def _axis_segments(P, T, Rmax, N, align):
+    """Partition one padded axis [0, P) into a low strip, interior tiles
+    and a high strip: ``[(px_off, n_tiles, tile_px, (lo, mid, hi)), ...]``
+    with every offset and extent a multiple of ``align`` (a copy of
+    pallas_scan.py:_axis_segments).  Flags: ``lo`` reads toward negative
+    leave the data; ``mid`` the core overhangs the real extent ``N``,
+    which unsafes every direction; ``hi`` reads toward positive leave the
+    data.  An axis too short for a safe interior is one all-masked
+    segment."""
+    strip = -(-Rmax // align) * align
+    BB = (N - Rmax) // align * align  # last aligned hi-safe region end
+    if BB < strip or strip >= P:
+        return [(0, 1, P, (True, P > N, True))]
+    segs = [(0, 1, strip, (True, False, False))]
+    M = BB - strip
+    k = M // T
+    rem = M - k * T
+    if k > 0:
+        segs.append((strip, k, T, (False, False, False)))
+    if rem > 0:
+        segs.append((strip + k * T, 1, rem, (False, False, False)))
+    segs.append((BB, 1, P - BB, (False, P > N, True)))
+    return segs
+
+
+def _axis_bad(dd, flags):
+    """Is a direction with per-axis step ``dd`` unsafe for a segment with
+    ``_axis_segments`` flags?  (A copy of pallas_scan.py:_axis_bad.)"""
+    lo, mid, hi = flags
+    if dd < 0:
+        return lo or mid
+    if dd > 0:
+        return hi
+    return mid
+
+
+def _grid(H, W):
+    """(rows, cols) of thread blocks over an (H, W) raster."""
+    return -(-int(H) // BLOCK[0]), -(-int(W) // BLOCK[1])
+
+
+def _plan_axis(N, Rmax, axis):
+    """(lo_end, hi_start, masks) of one axis: blocks starting before
+    ``lo_end`` are the low strip, from ``hi_start`` on the high strip;
+    ``masks`` packs the unsafe directions of the low strip, the interior
+    and the high strip, one byte each.  An axis too short for a safe
+    interior is all masked in every direction (the JAX plan may leave the
+    two directions along it maskless there; the port instantiates only
+    the 9 regions and the all-masked body)."""
+    align = BLOCK[axis]
+    P = -(-N // align) * align
+    segs = _axis_segments(P, align, Rmax, N, align)
+    if len(segs) == 1:
+        return 0, 0, 0xFF << 16
+    # the interior's flags are all False: its mask is 0
+    lo, hi = (sum(1 << d for d in range(8)
+                  if _axis_bad(OFFSETS[d][axis], seg[3]))
+              for seg in (segs[0], segs[-1]))
+    return segs[0][1] * segs[0][2], segs[-1][0], lo | hi << 16
+
+
+@functools.lru_cache(maxsize=64)
+def region_plan(H, W, Rmax):
+    """K5's static plan for an (H, W) raster at ladder reach ``Rmax``:
+    ``(rlo, rhi, rmasks, clo, chi, cmasks)`` as ``_plan_axis`` gives them
+    per axis (the counterpart of ``_region_calls``' ``_axis_segments`` at
+    the thread block's alignment).  A block's unsafe set is the union of
+    its row and column segments' sets: one of 9 regions, or all eight."""
+    return (*_plan_axis(int(H), int(Rmax), 0),
+            *_plan_axis(int(W), int(Rmax), 1))
+
+
+def plan_safe(H, W, Rmax):
+    """(8, nby, nbx) numpy bool: direction d is maskless for thread block
+    (by, bx) under ``region_plan``."""
+    rlo, rhi, rm, clo, chi, cm = region_plan(H, W, Rmax)
+    nby, nbx = _grid(H, W)
+
+    def seg_masks(n, step, lo, hi, masks):
+        start = np.arange(n) * step
+        seg = np.where(start < lo, 0, np.where(start < hi, 1, 2))
+        return (masks >> (8 * seg)) & 0xFF
+
+    unsafe = (seg_masks(nby, BLOCK[0], rlo, rhi, rm)[:, None]
+              | seg_masks(nbx, BLOCK[1], clo, chi, cm)[None, :])
+    return np.stack([(unsafe >> d) & 1 == 0 for d in range(8)])
+
+
+def dynamic_safe(shape, Rmax, grid=None, grid0=(0, 0), origin=None,
+                 global_shape=None):
+    """(8, nby, nbx) numpy bool: direction d is maskless for thread block
+    (by, bx) on the dynamic route, as
+    ``ladder.cuh:safe_directions``: the block's whole read window, shifted
+    by d*1 .. d*Rmax, lies on the ``shape`` array and, given the array's
+    ``origin`` (global row, col of its pixel (0, 0)), inside the
+    ``global_shape`` raster (pallas_scan.py:_dir_is_safe).  The grid of
+    ``grid`` blocks starts at array pixel ``grid0`` (K4: the core, at
+    (R, R))."""
+    H, W = map(int, shape)
+    nby, nbx = _grid(H, W) if grid is None else grid
+    r0 = int(grid0[0]) + BLOCK[0] * np.arange(nby)[:, None]
+    c0 = int(grid0[1]) + BLOCK[1] * np.arange(nbx)[None, :]
+
+    def on(r, c, dr, dc, h, w):
+        return ((r + min(dr, 0) >= 0) & (r + BLOCK[0] + max(dr, 0) <= h)
+                & (c + min(dc, 0) >= 0) & (c + BLOCK[1] + max(dc, 0) <= w))
+
+    out = np.empty((8, nby, nbx), dtype=bool)
+    for d, (dr, dc) in enumerate(OFFSETS):
+        ok = on(r0, c0, dr * Rmax, dc * Rmax, H, W)
+        if origin is not None:
+            gh, gw = (H, W) if global_shape is None else global_shape
+            ok = ok & on(r0 + int(origin[0]), c0 + int(origin[1]),
+                         dr * Rmax, dc * Rmax, int(gh), int(gw))
+        out[d] = ok
+    return out
+
+
+def route_table(Z, lookup_pixels, fast=False, how_fast=20, specialize=False,
+                origin=None, global_shape=None, core=0):
+    """(8, nby, nbx) bool tensor on Z's device: the (thread block,
+    direction) pairs that take the maskless ladder, as the kernels route
+    them.  ``specialize`` True: K5's region plan (whole raster only);
+    False: the dynamic predicate.  ``core``: the halo width of a shard
+    block whose grid covers its core only (K4: R, with ``origin`` the
+    core's global origin); ``origin`` otherwise the global position of
+    ``Z[0, 0]`` (K3's origin entry).  NaN cells change nothing: both
+    bodies skip a NaN read."""
+    Rmax = _ladder(int(lookup_pixels), fast, how_fast)[-1]
+    H, W = Z.shape
+    grid = _grid(H - 2 * core, W - 2 * core)
+    if specialize:
+        if origin is not None or core:
+            raise ValueError("the static region plan serves whole rasters "
+                             "only, as the JAX package's")
+        safe = plan_safe(H, W, Rmax)
+    else:
+        org = None
+        if origin is not None or global_shape is not None:
+            o = (0, 0) if origin is None else origin
+            org = (int(o[0]) - core, int(o[1]) - core)
+        safe = dynamic_safe((H, W), Rmax, grid, (core, core), org,
+                            global_shape)
+    return torch.from_numpy(safe).to(Z.device)
+
+
+# ----------------------------------------------------------------------
 # plain PyTorch versions
 # ----------------------------------------------------------------------
+def _block_pixels(table, grid0, shape):
+    """(H, W) bool: ``table`` (nby, nbx), one value per thread block of a
+    grid starting at array pixel ``grid0``, spread over the block's
+    pixels; False off the grid."""
+    by, bx = BLOCK
+    r0, c0 = map(int, grid0)
+    H, W = shape
+    px = table.repeat_interleave(by, 0).repeat_interleave(bx, 1)
+    out = torch.zeros((H, W), dtype=torch.bool, device=table.device)
+    out[r0:r0 + px.shape[0], c0:c0 + px.shape[1]] = px[:H - r0, :W - c0]
+    return out
+
+
 def _ladder_extrema(Z, cellsize, lookup_pixels, fast, how_fast, origin=None,
-                    global_shape=None):
+                    global_shape=None, safe=None, grid0=(0, 0)):
     """Yield ``(d, mx, mn)`` for d = 0..7: the ladder of every plain
     version, in plain PyTorch ops on any device.  Follows the Pallas
     formulation step for step: NaN pad, one shifted slice per (d, L),
@@ -134,7 +343,14 @@ def _ladder_extrema(Z, cellsize, lookup_pixels, fast, how_fast, origin=None,
     ``origin`` (global row, col of ``Z[0, 0]``) and ``global_shape`` put
     the epilogue in global coordinates for a shard block, as the XLA
     function does (neilpy_tpu/ops/visibility.py:140-144); reads still end
-    at the block's own edge (the NaN pad)."""
+    at the block's own edge (the NaN pad).
+
+    ``safe`` (an (8, nby, nbx) bool table from :func:`route_table`, for a
+    grid of thread blocks starting at array pixel ``grid0``) routes as the
+    kernels do: where it is set, direction d takes the maskless body
+    instead, ``torch.fmax`` / ``torch.fmin`` (NaN skipped, as the
+    kernels' ``fmaxf`` / ``fminf``) with no epilogue, reading +inf off the
+    array, so a pair wrongly marked safe shows as a changed extremum."""
     H, W = Z.shape
     R = int(lookup_pixels)
     ladder = _ladder(R, fast, how_fast)
@@ -142,6 +358,8 @@ def _ladder_extrema(Z, cellsize, lookup_pixels, fast, how_fast, origin=None,
     # python floats holding f32 values: a tensor-scalar op computes in f32
     scales = _ladder_scales(cellsize, ladder).tolist()
     Zp = torch.nn.functional.pad(Z, (R, R, R, R), value=float("nan"))
+    if safe is not None:
+        Zs = torch.nn.functional.pad(Z, (R, R, R, R), value=math.inf)
     rows = torch.arange(H, device=Z.device)[:, None]
     cols = torch.arange(W, device=Z.device)[None, :]
     if origin is not None:
@@ -149,19 +367,43 @@ def _ladder_extrema(Z, cellsize, lookup_pixels, fast, how_fast, origin=None,
         cols = cols + int(origin[1])
     GH, GW = (H, W) if global_shape is None else map(int, global_shape)
     for d, (dr, dc) in enumerate(OFFSETS):
+        routed = safe is not None and bool(safe[d].any())
         mx = torch.full((H, W), -math.inf, device=Z.device)
         mn = torch.full((H, W), math.inf, device=Z.device)
+        smx, smn = mx, mn
         for k, L in enumerate(ladder):
             src = Zp[R + dr * L:R + dr * L + H, R + dc * L:R + dc * L + W]
             ratio = (src - Z) * scales[d][k]
             mx = torch.where(ratio > mx, ratio, mx)
             mn = torch.where(ratio < mn, ratio, mn)
+            if routed:
+                sratio = (Zs[R + dr * L:R + dr * L + H,
+                             R + dc * L:R + dc * L + W] - Z) * scales[d][k]
+                smx = torch.fmax(smx, sratio)
+                smn = torch.fmin(smn, sratio)
         sr = rows + dr * Rmax
         sc = cols + dc * Rmax
         oob = (sr < 0) | (sr >= GH) | (sc < 0) | (sc >= GW)
         mx = torch.where(oob, mx.clamp(min=0.0), mx)
         mn = torch.where(oob, mn.clamp(max=0.0), mn)
+        if routed:
+            on = _block_pixels(safe[d], grid0, (H, W))
+            mx = torch.where(on, smx, mx)
+            mn = torch.where(on, smn, mn)
         yield d, mx, mn
+
+
+def _route(Z, lookup_pixels, fast, how_fast, route, origin=None,
+           global_shape=None, core=0):
+    """The ``safe`` table of :func:`_ladder_extrema` for ``route``: None
+    (the masked body everywhere), ``'dynamic'`` or ``'static'``."""
+    if route is None:
+        return None
+    if route not in ("dynamic", "static"):
+        raise ValueError(f"route must be None, 'dynamic' or 'static', got "
+                         f"{route!r}")
+    return route_table(Z, lookup_pixels, fast, how_fast,
+                       route == "static", origin, global_shape, core)
 
 
 def _classify(mx, mn, T):
@@ -195,13 +437,17 @@ def _votes(extrema, threshold_angle, shape, device, core=(slice(None),)):
 
 
 def openness_counts_torch(Z, cellsize=1.0, lookup_pixels=1,
-                          threshold_angle=1.0, fast=False, how_fast=20):
+                          threshold_angle=1.0, fast=False, how_fast=20,
+                          route=None):
     """(num_pos, num_neg) uint8 counts in plain PyTorch ops, on any
-    device: the reference K1 is held against on the card, and the CPU
-    path."""
+    device: the reference K1 and K5 are held against on the card, and the
+    CPU path.  ``route`` ``'dynamic'`` (K1's) or ``'static'`` (K5's plan)
+    routes the ladder per (thread block, direction) as that kernel does
+    (:func:`_ladder_extrema`); the counts do not change."""
     _check_raster(Z)
+    safe = _route(Z, lookup_pixels, fast, how_fast, route)
     return _votes(_ladder_extrema(Z, cellsize, lookup_pixels, fast,
-                                  how_fast),
+                                  how_fast, safe=safe),
                   threshold_angle, Z.shape, Z.device)
 
 
@@ -219,34 +465,41 @@ def _block_core(block, lookup_pixels):
 
 def openness_counts_block_torch(block_haloed, origin, global_shape,
                                 lookup_pixels, cellsize=1.0,
-                                threshold_angle=1.0, fast=False, how_fast=20):
+                                threshold_angle=1.0, fast=False, how_fast=20,
+                                route=None):
     """K4's counts in plain PyTorch ops, on any device: the reference K4 is
     held against on the card, and the CPU path.  ``block_haloed`` is one
     shard block with an R-wide halo of its neighbours' data (NaN beyond
     the raster), R = ``lookup_pixels``; ``origin`` the global (row, col)
     of its core; ``global_shape`` the raster's.  Returns core-shaped
-    (num_pos, num_neg) uint8, equal to the single-device counts there."""
+    (num_pos, num_neg) uint8, equal to the single-device counts there.
+    ``route='dynamic'`` routes as K4 does."""
     _check_raster(block_haloed)
     R, bh, bw = _block_core(block_haloed, lookup_pixels)
+    safe = _route(block_haloed, R, fast, how_fast, route, origin,
+                  global_shape, core=R)
     extrema = _ladder_extrema(
         block_haloed, cellsize, R, fast, how_fast,
         origin=(int(origin[0]) - R, int(origin[1]) - R),
-        global_shape=global_shape)
+        global_shape=global_shape, safe=safe, grid0=(R, R))
     return _votes(extrema, threshold_angle, (bh, bw), block_haloed.device,
                   core=(slice(R, R + bh), slice(R, R + bw)))
 
 
 def directional_extrema_torch(Z, cellsize=1.0, lookup_pixels=1, fast=False,
-                              how_fast=20, origin=None, global_shape=None):
+                              how_fast=20, origin=None, global_shape=None,
+                              route=None):
     """(mx, mn), each (8, H, W) float32, in plain PyTorch ops on any
     device: the reference K3 is held against on the card, and the CPU
     path.  ``origin`` / ``global_shape``: a shard block's global position
-    (:func:`_ladder_extrema`)."""
+    (:func:`_ladder_extrema`); ``route='dynamic'`` routes as K3 does."""
     _check_raster(Z)
+    safe = _route(Z, lookup_pixels, fast, how_fast, route, origin,
+                  global_shape)
     mx_all = torch.empty((8, *Z.shape), dtype=torch.float32, device=Z.device)
     mn_all = torch.empty_like(mx_all)
     for d, mx, mn in _ladder_extrema(Z, cellsize, lookup_pixels, fast,
-                                     how_fast, origin, global_shape):
+                                     how_fast, origin, global_shape, safe):
         mx_all[d] = mx
         mn_all[d] = mn
     return mx_all, mn_all
@@ -254,24 +507,25 @@ def directional_extrema_torch(Z, cellsize=1.0, lookup_pixels=1, fast=False,
 
 def openness_reduced_torch(Z, mode, cellsize=1.0, lookup_pixels=1,
                            threshold_angle=0.0, neg_mode=True, fast=False,
-                           how_fast=20):
+                           how_fast=20, route=None):
     """K2's reduction in plain PyTorch ops, on any device: the reference
-    K2 is held against on the card, and the CPU path.  Folds the
+    K2 and K5 are held against on the card, and the CPU path.  Folds the
     directions in K2's order d = 0..7 and returns a tuple, as
     ``_reduced_call``: ``mode='openness'`` the positive and negative sums
     of ``pi/2 - atan`` in radians (+inf where a direction saw nothing);
     ``'svf'`` the sum of ``t/sqrt(1+t^2)``, ``t = max(mx, 0)``;
     ``'ternary'`` the base-3 code as uint16 (``neg_mode``: O = pos - neg,
     else O = pos - 90; digit 2 above ``threshold_angle``, 0 below its
-    negative)."""
+    negative).  ``route`` as :func:`openness_counts_torch`."""
     _check_mode(mode)
     _check_raster(Z)
     T = _threshold_tangent(threshold_angle)
+    safe = _route(Z, lookup_pixels, fast, how_fast, route)
     acc0 = torch.zeros(Z.shape, dtype=torch.float32, device=Z.device)
     acc1 = torch.zeros_like(acc0)
     code = torch.zeros(Z.shape, dtype=torch.int32, device=Z.device)
     for d, mx, mn in _ladder_extrema(Z, cellsize, lookup_pixels, fast,
-                                     how_fast):
+                                     how_fast, safe=safe):
         seen = mx > -math.inf
         if mode == "openness":
             acc0 = acc0 + torch.where(seen, _HALF_PI - torch.atan(mx),
@@ -304,7 +558,8 @@ def _check_cuda(Z, name):
     _check_raster(Z)
     if not Z.is_cuda:
         raise ValueError(f"{name} needs a CUDA tensor, got one on {Z.device};"
-                         f" use {name[:-len('_cuda')]}_torch on the CPU")
+                         " use the plain version (engine='torch') on the "
+                         "CPU")
     if not Z.is_contiguous():
         raise ValueError(f"{name} needs a contiguous tensor")
     if Z.shape[0] > 8 * 65535:
@@ -312,51 +567,80 @@ def _check_cuda(Z, name):
                          "(524280)")
 
 
-def _launch(Z, entry, cellsize, lookup_pixels, fast, how_fast, *args):
+def _launch(Z, entry, cellsize, lookup_pixels, fast, how_fast, *args,
+            plan=False):
     """Launch C entry ``entry`` for raster ``Z`` with its ladder tables,
-    then ``args``, on Z's device and current stream; raise on a CUDA
-    error.  Does not synchronise."""
+    the dense-ladder flag and the route mask ``_ALLOW_MASKLESS``, then
+    K5's region plan if ``plan``, then ``args``, on Z's device and current
+    stream; raise on a CUDA error.  Does not synchronise."""
     lib = _build.load()
     ladder = _ladder(int(lookup_pixels), fast, how_fast)
+    Rmax = ladder[-1]
     ladder_t, scales = _device_tables(float(cellsize), ladder, Z.device)
+    dense = ladder == tuple(range(1, len(ladder) + 1))
     H, W = Z.shape
     with torch.cuda.device(Z.device):
         stream = torch.cuda.current_stream(Z.device).cuda_stream
-        err = getattr(lib, entry)(Z.data_ptr(), H, W, ladder_t.data_ptr(),
-                                  scales.data_ptr(), len(ladder), ladder[-1],
-                                  *args, stream)
+        err = getattr(lib, entry)(
+            Z.data_ptr(), H, W, ladder_t.data_ptr(), scales.data_ptr(),
+            len(ladder), Rmax, int(dense), _ALLOW_MASKLESS,
+            *(region_plan(H, W, Rmax) if plan else ()), *args, stream)
     if err != 0:
         raise RuntimeError(f"{entry} failed: CUDA error {err}")
 
 
-def openness_counts_cuda(Z, cellsize=1.0, lookup_pixels=1,
-                         threshold_angle=1.0, fast=False, how_fast=20):
-    """(num_pos, num_neg) uint8 counts from K1 (``csrc/openness_counts.cu``).
-    ``Z`` must be a contiguous 2-D float32 CUDA tensor; anything else
-    raises.  Launches on the current stream and does not synchronise.
-    ``openness_counts_cuda.launches`` counts the launches of this
-    process."""
-    _check_cuda(Z, "openness_counts_cuda")
+def _counts_cuda(Z, name, cellsize, lookup_pixels, threshold_angle, fast,
+                 how_fast, plan):
+    _check_cuda(Z, name)
     num_pos = torch.empty(Z.shape, dtype=torch.uint8, device=Z.device)
     num_neg = torch.empty_like(num_pos)
     if Z.numel() == 0:
-        return num_pos, num_neg
-    _launch(Z, "openness_counts_launch", cellsize, lookup_pixels, fast,
-            how_fast, _threshold_tangent(threshold_angle),
-            num_pos.data_ptr(), num_neg.data_ptr())
-    openness_counts_cuda.launches += 1
+        return num_pos, num_neg, False
+    _launch(Z, f"{name[:-len('_cuda')]}_launch", cellsize, lookup_pixels,
+            fast, how_fast, _threshold_tangent(threshold_angle),
+            num_pos.data_ptr(), num_neg.data_ptr(), plan=plan)
+    return num_pos, num_neg, True
+
+
+def openness_counts_cuda(Z, cellsize=1.0, lookup_pixels=1,
+                         threshold_angle=1.0, fast=False, how_fast=20):
+    """(num_pos, num_neg) uint8 counts from K1 (``csrc/openness_counts.cu``),
+    on the dynamic route.  ``Z`` must be a contiguous 2-D float32 CUDA
+    tensor; anything else raises.  Launches on the current stream and
+    does not synchronise.  ``openness_counts_cuda.launches`` counts the
+    launches of this process."""
+    num_pos, num_neg, launched = _counts_cuda(
+        Z, "openness_counts_cuda", cellsize, lookup_pixels, threshold_angle,
+        fast, how_fast, plan=False)
+    openness_counts_cuda.launches += launched
     return num_pos, num_neg
 
 
 openness_counts_cuda.launches = 0
 
 
+def openness_counts_plan_cuda(Z, cellsize=1.0, lookup_pixels=1,
+                              threshold_angle=1.0, fast=False, how_fast=20):
+    """K5 for the counts (``csrc/openness_counts_plan.cu``): K1's counts
+    through the static region plan (:func:`region_plan`).  Same input
+    rules, stream and counter (``openness_counts_plan_cuda.launches``) as
+    :func:`openness_counts_cuda`."""
+    num_pos, num_neg, launched = _counts_cuda(
+        Z, "openness_counts_plan_cuda", cellsize, lookup_pixels,
+        threshold_angle, fast, how_fast, plan=True)
+    openness_counts_plan_cuda.launches += launched
+    return num_pos, num_neg
+
+
+openness_counts_plan_cuda.launches = 0
+
+
 def openness_counts_block_cuda(block_haloed, origin, global_shape,
                                lookup_pixels, cellsize=1.0,
                                threshold_angle=1.0, fast=False, how_fast=20):
-    """K4 (``csrc/openness_counts_block.cu``): the core-shaped counts of
-    :func:`openness_counts_block_torch`.  Same input rules, stream and
-    counter (``openness_counts_block_cuda.launches``) as
+    """K4 (``csrc/openness_counts_block.cu``, dynamic route): the
+    core-shaped counts of :func:`openness_counts_block_torch`.  Same input
+    rules, stream and counter (``openness_counts_block_cuda.launches``) as
     :func:`openness_counts_cuda`."""
     _check_cuda(block_haloed, "openness_counts_block_cuda")
     R, bh, bw = _block_core(block_haloed, lookup_pixels)
@@ -380,7 +664,7 @@ openness_counts_block_cuda.launches = 0
 def directional_extrema_cuda(Z, cellsize=1.0, lookup_pixels=1, fast=False,
                              how_fast=20, origin=None, global_shape=None):
     """(mx, mn), each (8, H, W) float32, from K3
-    (``csrc/directional_extrema.cu``); given ``origin`` or
+    (``csrc/directional_extrema.cu``, dynamic route); given ``origin`` or
     ``global_shape``, from its entry for a shard block.  Same input rules,
     stream and counter (``directional_extrema_cuda.launches``, both
     entries) as :func:`openness_counts_cuda`."""
@@ -405,15 +689,10 @@ def directional_extrema_cuda(Z, cellsize=1.0, lookup_pixels=1, fast=False,
 directional_extrema_cuda.launches = 0
 
 
-def openness_reduced_cuda(Z, mode, cellsize=1.0, lookup_pixels=1,
-                          threshold_angle=0.0, neg_mode=True, fast=False,
-                          how_fast=20):
-    """K2 (``csrc/openness_reduced.cu``): the same tuple as
-    :func:`openness_reduced_torch`.  Same input rules, stream and counter
-    (``openness_reduced_cuda.launches``) as
-    :func:`openness_counts_cuda`."""
+def _reduced_cuda(Z, name, mode, cellsize, lookup_pixels, threshold_angle,
+                  neg_mode, fast, how_fast, plan):
     _check_mode(mode)
-    _check_cuda(Z, "openness_reduced_cuda")
+    _check_cuda(Z, name)
     dev = Z.device
     if mode == "ternary":
         outs = (torch.empty(Z.shape, dtype=torch.uint16, device=dev),)
@@ -424,15 +703,45 @@ def openness_reduced_cuda(Z, mode, cellsize=1.0, lookup_pixels=1,
         ptrs = (outs[0].data_ptr(),
                 outs[1].data_ptr() if mode == "openness" else None, None)
     if Z.numel() == 0:
-        return outs
-    _launch(Z, "openness_reduced_launch", cellsize, lookup_pixels, fast,
-            how_fast, _MODES[mode], int(bool(neg_mode)),
-            _threshold_tangent(threshold_angle), *ptrs)
-    openness_reduced_cuda.launches += 1
+        return outs, False
+    _launch(Z, f"{name[:-len('_cuda')]}_launch", cellsize, lookup_pixels,
+            fast, how_fast, _MODES[mode], int(bool(neg_mode)),
+            _threshold_tangent(threshold_angle), *ptrs, plan=plan)
+    return outs, True
+
+
+def openness_reduced_cuda(Z, mode, cellsize=1.0, lookup_pixels=1,
+                          threshold_angle=0.0, neg_mode=True, fast=False,
+                          how_fast=20):
+    """K2 (``csrc/openness_reduced.cu``, dynamic route): the same tuple as
+    :func:`openness_reduced_torch`.  Same input rules, stream and counter
+    (``openness_reduced_cuda.launches``) as :func:`openness_counts_cuda`."""
+    outs, launched = _reduced_cuda(
+        Z, "openness_reduced_cuda", mode, cellsize, lookup_pixels,
+        threshold_angle, neg_mode, fast, how_fast, plan=False)
+    openness_reduced_cuda.launches += launched
     return outs
 
 
 openness_reduced_cuda.launches = 0
+
+
+def openness_reduced_plan_cuda(Z, mode, cellsize=1.0, lookup_pixels=1,
+                               threshold_angle=0.0, neg_mode=True,
+                               fast=False, how_fast=20):
+    """K5 for the fused reductions (``csrc/openness_reduced_plan.cu``):
+    K2's tuple through the static region plan (:func:`region_plan`).  Same
+    input rules, stream and counter
+    (``openness_reduced_plan_cuda.launches``) as
+    :func:`openness_counts_cuda`."""
+    outs, launched = _reduced_cuda(
+        Z, "openness_reduced_plan_cuda", mode, cellsize, lookup_pixels,
+        threshold_angle, neg_mode, fast, how_fast, plan=True)
+    openness_reduced_plan_cuda.launches += launched
+    return outs
+
+
+openness_reduced_plan_cuda.launches = 0
 
 
 # ----------------------------------------------------------------------
@@ -452,11 +761,29 @@ def _pick(Z, engine, cuda_fn, torch_fn):
                      f"{engine!r}")
 
 
+def _counts_kernel(specialize, fast):
+    """K5 or K1 by ``specialize`` (:func:`_resolve_specialize`)."""
+    return (openness_counts_plan_cuda
+            if _resolve_specialize(specialize, False, fast)
+            else openness_counts_cuda)
+
+
+def _reduced_kernel(specialize, fast):
+    """K5 or K2 by ``specialize`` (:func:`_resolve_specialize`)."""
+    return (openness_reduced_plan_cuda
+            if _resolve_specialize(specialize, False, fast)
+            else openness_reduced_cuda)
+
+
 def openness_counts(Z, cellsize=1.0, lookup_pixels=1, threshold_angle=1.0,
-                    fast=False, how_fast=20, engine="auto"):
+                    fast=False, how_fast=20, engine="auto", specialize=None):
     """(num_pos, num_neg) for a float32 tensor, by ``engine``
-    (see :func:`_pick`)."""
-    fn = _pick(Z, engine, openness_counts_cuda, openness_counts_torch)
+    (see :func:`_pick`).  ``specialize`` picks the kernel for a CUDA
+    tensor as the JAX package picks its route: True K5's static region
+    plan, False K1's dynamic route, None the plan for the exact ladder and
+    K1 for ``fast``; the plain version ignores it."""
+    fn = _pick(Z, engine, _counts_kernel(specialize, fast),
+               openness_counts_torch)
     return fn(Z, cellsize=cellsize, lookup_pixels=lookup_pixels,
               threshold_angle=threshold_angle, fast=fast, how_fast=how_fast)
 
@@ -485,9 +812,11 @@ def directional_extrema(Z, cellsize=1.0, lookup_pixels=1, fast=False,
 
 def openness_reduced(Z, mode, cellsize=1.0, lookup_pixels=1,
                      threshold_angle=0.0, neg_mode=True, fast=False,
-                     how_fast=20, engine="auto"):
-    """K2's tuple for a float32 tensor, by ``engine``."""
-    fn = _pick(Z, engine, openness_reduced_cuda, openness_reduced_torch)
+                     how_fast=20, engine="auto", specialize=None):
+    """K2's tuple for a float32 tensor, by ``engine``; ``specialize`` as
+    :func:`openness_counts` (K5 or K2)."""
+    fn = _pick(Z, engine, _reduced_kernel(specialize, fast),
+               openness_reduced_torch)
     return fn(Z, mode, cellsize=cellsize, lookup_pixels=lookup_pixels,
               threshold_angle=threshold_angle, neg_mode=neg_mode, fast=fast,
               how_fast=how_fast)
@@ -509,38 +838,38 @@ def skyview_from_sum(s):
 
 
 def geomorphons_cuda(Z, cellsize=1, lookup_pixels=1, threshold_angle=1,
-                     fast=False, how_fast=20):
-    """Geomorphon classes from K1 (counterpart of ``geomorphons_pallas``:
-    no enhance pass)."""
+                     fast=False, how_fast=20, specialize=None):
+    """Geomorphon classes from K5 or K1 by ``specialize`` (counterpart of
+    ``geomorphons_pallas``: no enhance pass)."""
     from .visibility import classes_from_counts
-    num_pos, num_neg = openness_counts_cuda(
+    num_pos, num_neg = _counts_kernel(specialize, fast)(
         Z, cellsize=cellsize, lookup_pixels=lookup_pixels,
         threshold_angle=threshold_angle, fast=fast, how_fast=how_fast)
     return classes_from_counts(num_pos, num_neg)
 
 
 def openness_cuda(Z, cellsize=1.0, lookup_pixels=1, fast=False,
-                  how_fast=20):
-    """(positive, negative) openness in degrees from one K2 launch
+                  how_fast=20, specialize=None):
+    """(positive, negative) openness in degrees from one K5 or K2 launch
     (counterpart of ``openness_pallas``)."""
-    return openness_degrees(*openness_reduced_cuda(
+    return openness_degrees(*_reduced_kernel(specialize, fast)(
         Z, "openness", cellsize=cellsize, lookup_pixels=lookup_pixels,
         fast=fast, how_fast=how_fast))
 
 
-def skyview_cuda(Z, cellsize=1.0, lookup_pixels=1):
-    """Skyview factor from one K2 launch (counterpart of
+def skyview_cuda(Z, cellsize=1.0, lookup_pixels=1, specialize=None):
+    """Skyview factor from one K5 or K2 launch (counterpart of
     ``skyview_pallas``)."""
-    (s,) = openness_reduced_cuda(Z, "svf", cellsize=cellsize,
-                                 lookup_pixels=lookup_pixels)
+    (s,) = _reduced_kernel(specialize, False)(
+        Z, "svf", cellsize=cellsize, lookup_pixels=lookup_pixels)
     return skyview_from_sum(s)
 
 
 def ternary_cuda(Z, cellsize=1.0, lookup_pixels=1, threshold_angle=0.0,
-                 use_negative_openness=True):
-    """Base-3 ternary code (uint16) from one K2 launch (counterpart of
-    ``ternary_pallas``)."""
-    (code,) = openness_reduced_cuda(
+                 use_negative_openness=True, specialize=None):
+    """Base-3 ternary code (uint16) from one K5 or K2 launch (counterpart
+    of ``ternary_pallas``)."""
+    (code,) = _reduced_kernel(specialize, False)(
         Z, "ternary", cellsize=cellsize, lookup_pixels=lookup_pixels,
         threshold_angle=threshold_angle, neg_mode=use_negative_openness)
     return code

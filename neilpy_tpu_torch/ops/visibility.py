@@ -10,10 +10,12 @@ ladder runs in ``ops/cuda_scan.py``: a CUDA kernel for a CUDA tensor, its
 plain PyTorch version for a CPU tensor.  Which kernel each function
 takes is the one its Pallas engine takes in the JAX package:
 
-- counts (K1): ``count_openness``, ``geomorphons``, ``geomorphons2`` with
-  negative openness;
-- the fused reduction (K2): ``openness`` over all 8 directions,
-  ``openness_pair``, ``skyview_factor``, ``ternary_pattern_from_openness``;
+- counts (K1; on the exact ladder K5, its static region plan, the JAX
+  package's default route): ``count_openness``, ``geomorphons``,
+  ``geomorphons2`` with negative openness;
+- the fused reduction (K2; K5 on the exact ladder): ``openness`` over all
+  8 directions, ``openness_pair``, ``skyview_factor``,
+  ``ternary_pattern_from_openness``;
 - the extrema planes (K3): ``directional_ratio_extrema``, ``openness``
   over a ``neighbors`` subset, ``geomorphons2`` without negative
   openness.
@@ -141,14 +143,17 @@ def openness(Z, cellsize=1, lookup_pixels=1, neighbors=None, skyview=False,
 def openness_pair(Z, cellsize=1, lookup_pixels=1, fast=False, how_fast=20,
                   engine="auto", specialize=None, device=None):
     """(positive, negative) openness in degrees from ONE ladder pass
-    (K2): negative openness comes from the same ladder's ``mn``, so this
-    is half the cost of ``openness(Z)`` + ``openness(-Z)``.
-    ``specialize`` (the TPU's static 9-patch launch plan, bit-identical
-    output) is accepted and ignored."""
+    (K2, or K5's static plan of it): negative openness comes from the same
+    ladder's ``mn``, so this is half the cost of ``openness(Z)`` +
+    ``openness(-Z)``.  ``specialize`` picks the kernel on a CUDA tensor as
+    the JAX package picks its route: True K5's static region plan, False
+    K2's dynamic route, None the plan for the exact ladder and K2 for
+    ``fast``.  The outputs are bit-identical either way; on the CPU the
+    plain version runs and ``specialize`` changes nothing."""
     return openness_degrees(*openness_reduced(
         as_raster(Z, device), "openness", cellsize=float(cellsize),
         lookup_pixels=int(lookup_pixels), fast=bool(fast),
-        how_fast=int(how_fast), engine=engine))
+        how_fast=int(how_fast), engine=engine, specialize=specialize))
 
 
 def skyview_factor(Z, cellsize=1, lookup_pixels=1, engine="auto",
