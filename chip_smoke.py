@@ -12,10 +12,18 @@ openness / skyview / ternary reduction), K3 (the per-direction extrema
 planes, with and without a global origin), K4 (the counts of one
 haloed shard block) and K5 (the static region plan of K1 and K2).  Each
 kernel routes every (thread block, direction) pair to the masked or the
-maskless ladder; ``routes_vs_plain`` holds both routes of K1 and K2
-against each other (equal) and the plain version, and K3 and K4 against
-the plain version, on NaN holes, unaligned shapes and lookups 1 to 100,
-and ``maskless_share`` checks that at 8192^2 the host's route table sends
+maskless ladder, and K1 and K5/counts run their all-safe interior as
+tiles of 32 x 64 pixels with the Rmax halo in shared memory
+(``csrc/ladder_tile.cuh``, filled by TMA or by cp.async);
+``routes_vs_plain`` holds both routes of K1 and K2 against each other
+(equal) and the plain version, K1 and K5/counts with the tile path on and
+off, and K3 and K4 against the plain version, on NaN holes (also inside
+tiles, on both load paths), unaligned shapes and lookups 1 to 100,
+``tile_reaches_vs_plain`` holds K1 and K5/counts against the plain
+version on every ladder that takes the tile path (every halo bucket, on
+both load paths), the counts kernels always writing into outputs
+pre-filled with 255 so a pixel no launch writes shows, and
+``maskless_share`` checks that at 8192^2 the host's route table sends
 more than 90% of the pairs down the maskless ladder.  It checks the port against the f64 numpy
 oracles of ``tests/reference_impls.py``, then drives three paths at the
 reference scale, an 8192 x 8192 DEM written as a GeoTIFF and read back
@@ -43,11 +51,15 @@ just after, and every output is compared with its plain version (the
 sharded outputs with the single-device ones) at full size.  Then
 ``full_size_vs_plain`` holds the raw outputs of K1 and K5 (counts, both
 ladders), K2 and K5 (each reduction) and K3 (the planes) against their
-plain versions at 8192^2, lookup 50.  Last, it times each kernel on each
-route (all blocks masked, dynamic, static) and its plain version with
-CUDA events, checks that both routes beat the all-masked launch (so the
-kernels really take the maskless ladder), and times the sharded call
-against the single-device one; the kernel table gives each kernel's
+plain versions at 8192^2, lookup 50 (K1 and K5/counts tile path on and
+off).  Last, it times each kernel on each route (all blocks masked,
+dynamic, static; K1 and K5/counts also per-thread, the tile path off) and
+its plain version with CUDA events, checks that both routes beat the
+all-masked launch (so the kernels really take the maskless ladder) and
+that the tile path beats the per-thread one (so it really runs), times
+K5/counts at lookup 12 (the enhance pass's second launch) and the
+``geomorphons`` call with the tile path on and off, and times the sharded
+call against the single-device one; the kernel table gives each kernel's
 bound (operations at the f32 instruction rate or bytes at the HBM rate,
 whichever is larger).
 
@@ -64,6 +76,7 @@ table ``{"kernels": [...]}``; the last line is
 exits non-zero without that line; so does a machine with no CUDA device.
 """
 
+import contextlib
 import json
 import re
 import statistics
@@ -79,6 +92,7 @@ import torch
 HERE = Path(__file__).resolve().parent
 MAIN_SHAPE = (8192, 8192)      # bench.py SCALE_SHAPE: ~1e8 px, Poland EU-DEM scale
 MAIN_LOOKUP = 50
+ENHANCE_LOOKUP = 12            # geomorphons(enhance=True)'s second pass
 TIMED_RUNS = 5
 # the H100 SXM's published rates (NVIDIA's data sheet): float32 outside
 # the tensor cores, 67 TFLOP/s counting an FMA as two operations, so
@@ -89,6 +103,9 @@ OPS_PER_STEP = 4               # sub, mul, max, min per ladder step: no FMA
 # both routes must beat the all-masked launch by this factor at 8192^2
 # (they take the maskless ladder on ~99% of the pairs)
 ROUTE_GAIN = 0.8
+# the tile path of K1 and K5/counts must beat their per-thread bodies by
+# this factor at 8192^2 (it takes ~97% of the pixels there)
+TILE_GAIN = 0.9
 OPENNESS_TOL = 5e-5            # degrees: atanf vs torch.atan, per direction
 SVF_TOL = 1e-6
 ORACLE_OPENNESS_TOL = 2e-4     # degrees, as tests/test_visibility.py
@@ -229,7 +246,7 @@ def kernel_vs_plain(cuda_scan, dev):
     for name, Z, lk, t, f in cases:
         Zd = torch.from_numpy(Z).to(dev)
         kw = dict(cellsize=2.0, lookup_pixels=lk, threshold_angle=t, fast=f)
-        k = cuda_scan.openness_counts_cuda(Zd, **kw)
+        k = cuda_scan.openness_counts_cuda(Zd, out=unwritten(Zd), **kw)
         p = cuda_scan.openness_counts_torch(Zd, **kw)
         torch.cuda.synchronize()
         err = max(int((a.int() - b.int()).abs().max()) for a, b in zip(k, p))
@@ -352,7 +369,9 @@ def block_kernels_vs_plain(cuda_scan, dev, big):
 def route_rasters():
     """The routing cases: today's rasters plus a NaN hole deep inside an
     interior block, shapes that are not multiples of the 8 x 32 block,
-    and one raster smaller than the longest lookup."""
+    one raster smaller than the longest lookup, and one whose width is not
+    a multiple of 4 (the tile path's cp.async load) with a NaN hole inside
+    its tiles; the 600 x 900 raster's NaN lies in a TMA-loaded tile."""
     r = np.random.default_rng(11)
     small = r.normal(size=(100, 140)).cumsum(0).cumsum(1).astype(np.float32)
     big = r.normal(size=(1000, 1537)).cumsum(0).cumsum(1).astype(np.float32)
@@ -364,23 +383,52 @@ def route_rasters():
     odd[100:120, 40:90] = np.nan
     thin = r.normal(size=(97, 45)).cumsum(1).astype(np.float32)
     tiny = r.normal(size=(24, 32)).cumsum(0).astype(np.float32)
+    unaligned = r.normal(size=(515, 771)).cumsum(0).cumsum(1).astype(
+        np.float32)
+    unaligned[200:210, 300:330] = np.nan     # inside the tiles up to lookup 50
     return [("100x140", small), ("1000x1537+nan", big),
             ("600x900+deep nan", deep), ("257x389+nan", odd),
-            ("97x45", thin), ("24x32", tiny)]
+            ("97x45", thin), ("24x32", tiny),
+            ("515x771+nan in a tile", unaligned)]
+
+
+def unwritten(Zd):
+    """An ``out`` pair for the counts kernels, pre-filled with 255: a count
+    is at most 8, so a pixel that no kernel of the launch writes differs
+    from the plain version."""
+    return tuple(torch.full(Zd.shape, 255, dtype=torch.uint8,
+                            device=Zd.device) for _ in range(2))
+
+
+def tile_case(cuda_scan, Z, Zd, lookup, fast, plan):
+    """(load path, a NaN inside a tile) of one K1 (``plan`` False) or
+    K5/counts launch as the host routes it (``cuda_scan._tile_args``, the
+    arguments the kernel gets), or None where no tile runs."""
+    ladder = cuda_scan._ladder(lookup, fast)
+    args = cuda_scan._tile_args(Zd, ladder[-1], len(ladder), plan)
+    if not args[0]:
+        return None
+    t = cuda_scan.tile_route(*Z.shape, ladder[-1], plan, len(ladder))
+    return ("tma" if args[5] else "cp.async",
+            bool((np.isnan(Z) & t.pixels(*Z.shape)).any()))
 
 
 def routes_vs_plain(cuda_scan, dev):
     """Phase 3b: both routes of K1 and K2 (the dynamic kernel and K5's
     static plan), exact and fast ladders, against each other and the
-    plain version; K3 and K4 (dynamic route only) against the plain
-    version; lookups 1 to 100, so R also exceeds the smaller rasters.
-    Between routes every output is equal (max |diff| 0, openness too);
-    against the plain version counts, codes and extrema exactly (extrema
-    by value), openness and skyview within the stated tolerances."""
+    plain version, K1 and K5/counts with the tile path on and off; K3 and
+    K4 (dynamic route only) against the plain version; lookups 1 to 100,
+    so R also exceeds the smaller rasters.  Between routes every output is
+    equal (max |diff| 0, openness too); against the plain version counts,
+    codes and extrema exactly (extrema by value), openness and skyview
+    within the stated tolerances.  Both tile load paths must run, each
+    also on a raster with a NaN inside its tiles."""
     worst = {"K1": 0, "K2": 0.0, "K3": 0.0, "K4": 0, "K5/counts": 0,
              "K5/reduced": 0.0}
     n = {k: 0 for k in worst}
-    lookups = (1, 2, 7, 12, 33, 50, 100)
+    tile_runs = {"tma": 0, "cp.async": 0}
+    nan_in_tile = {"tma": 0, "cp.async": 0}
+    lookups = (1, 2, 7, 12, 24, 33, 50, 100)
     modes = [("openness", {}), ("svf", {}),
              ("ternary", {"threshold_angle": 1.0}),
              ("ternary", {"threshold_angle": 1.0, "neg_mode": False})]
@@ -395,13 +443,23 @@ def routes_vs_plain(cuda_scan, dev):
                 for kid, fn in (("K1", cuda_scan.openness_counts_cuda),
                                 ("K5/counts",
                                  cuda_scan.openness_counts_plan_cuda)):
-                    k = fn(Zd, threshold_angle=1.0, **kw)
-                    torch.cuda.synchronize()
-                    err = max(int((a.int() - b.int()).abs().max())
-                              for a, b in zip(k, p))
-                    check(err == 0, f"{kid} counts != plain on {what} "
-                                    f"(max |diff| {err})")
-                    n[kid] += 1
+                    for tiled in (True, False):
+                        with (contextlib.nullcontext() if tiled
+                              else per_thread(cuda_scan)):
+                            k = fn(Zd, threshold_angle=1.0,
+                                   out=unwritten(Zd), **kw)
+                        torch.cuda.synchronize()
+                        err = max(int((a.int() - b.int()).abs().max())
+                                  for a, b in zip(k, p))
+                        check(err == 0, f"{kid} counts (tile path "
+                                        f"{'on' if tiled else 'off'}) != "
+                                        f"plain on {what} (max |diff| {err})")
+                        n[kid] += 1
+                    case = tile_case(cuda_scan, Z, Zd, lk, fast,
+                                     kid == "K5/counts")
+                    if case is not None:
+                        tile_runs[case[0]] += 1
+                        nan_in_tile[case[0]] += case[1]
                 for mode, extra in modes:
                     mkw = dict(kw, **extra)
                     dyn = cuda_scan.openness_reduced_cuda(Zd, mode, **mkw)
@@ -456,9 +514,66 @@ def routes_vs_plain(cuda_scan, dev):
                       f"K3 origin entry != plain on {name} block at "
                       f"{(oy, ox)} lookup={lk}")
                 n["K3"] += 1
+    check(min(tile_runs.values()) > 0 and min(nan_in_tile.values()) > 0,
+          f"a tile load path did not run, or never over a NaN: launches "
+          f"{tile_runs}, with a NaN in a tile {nan_in_tile}")
     emit(phase="routes_vs_plain", cases=n, max_abs_err=worst,
          lookups=list(lookups), rasters=[r[0] for r in route_rasters()],
-         between_routes_max_abs_err=0)
+         between_routes_max_abs_err=0, tile_launches_by_load=tile_runs,
+         tile_launches_with_nan_by_load=nan_in_tile)
+    return worst
+
+
+def tile_reaches_vs_plain(cuda_scan, dev):
+    """Phase 3c: every ladder that takes the tile path (exact lookups 1 to
+    94, the fast ladders of lookups 1 to 120), on a raster that TMA loads
+    and on one that cp.async loads (W % 4 != 0), each with a NaN inside
+    the tiles: K1 and K5/counts, written into outputs pre-filled with 255,
+    against the plain version, max |diff| 0.  Every halo bucket must run
+    on both load paths in both kernels."""
+    r = np.random.default_rng(13)
+    rasters = []
+    for W in (512, 515):
+        Z = r.normal(size=(384, W)).cumsum(0).cumsum(1).astype(np.float32)
+        Z[190:194, 250:260] = np.nan
+        rasters.append((f"384x{W}+nan", Z))
+    ladders = {}
+    for fast in (False, True):
+        for lk in range(1, 121):
+            ladders.setdefault(cuda_scan._ladder(lk, fast), (lk, fast))
+    fns = (("K1", cuda_scan.openness_counts_cuda, False),
+           ("K5/counts", cuda_scan.openness_counts_plan_cuda, True))
+    ran = {}
+    worst = 0
+    for name, Z in rasters:
+        Zd = torch.from_numpy(Z).to(dev)
+        for ladder, (lk, fast) in ladders.items():
+            runs = [(kid, fn, cuda_scan._tile_args(Zd, ladder[-1],
+                                                   len(ladder), plan))
+                    for kid, fn, plan in fns]
+            runs = [run for run in runs if run[2][0]]
+            if not runs:
+                continue
+            kw = dict(cellsize=2.0, lookup_pixels=lk, threshold_angle=1.0,
+                      fast=fast)
+            p = cuda_scan.openness_counts_torch(Zd, **kw)
+            for kid, fn, args in runs:
+                k = fn(Zd, out=unwritten(Zd), **kw)
+                torch.cuda.synchronize()
+                err = max(int((a.int() - b.int()).abs().max())
+                          for a, b in zip(k, p))
+                check(err == 0, f"{kid} tile path != plain on {name} "
+                                f"lookup={lk} fast={fast} halo={args[0]} "
+                                f"(max |diff| {err})")
+                worst = max(worst, err)
+                key = f"{kid} {'tma' if args[5] else 'cp.async'} {args[0]}"
+                ran[key] = ran.get(key, 0) + 1
+    want = {f"{kid} {load} {h}" for kid, _, _ in fns
+            for load in ("tma", "cp.async") for h in cuda_scan._TILE_HALOS}
+    check(want <= set(ran), f"halo buckets not run: {sorted(want - set(ran))}")
+    emit(phase="tile_reaches_vs_plain", rasters=[r[0] for r in rasters],
+         ladders=len(ladders), launches_by_kernel_load_halo=ran,
+         max_abs_err=worst)
     return worst
 
 
@@ -485,7 +600,8 @@ def maskless_share(cuda_scan, Zd):
 def full_size_vs_plain(cuda_scan, Zd):
     """Phase 6b: the kernels' raw outputs at 8192^2, lookup 50, against
     their plain versions on the same input (uncounted): K1 and K5/counts
-    (threshold 1, both ladders) exactly and equal to each other; K2 and
+    (threshold 1, both ladders, tile path on and off) exactly and equal to
+    each other; K2 and
     K5/reduced (each mode, exact ladder; K2 also openness on the fast
     ladder) at the stated tolerances and equal to each other; K3's planes
     exactly by value.  The paths compare only what these outputs become
@@ -499,14 +615,20 @@ def full_size_vs_plain(cuda_scan, Zd):
         outs = {}
         for kid, fn in (("K1", cuda_scan.openness_counts_cuda),
                         ("K5/counts", cuda_scan.openness_counts_plan_cuda)):
-            outs[kid] = fn(Zd, threshold_angle=1.0, fast=fast, **kw)
-            torch.cuda.synchronize()
-            err = max(int((a.int() - b.int()).abs().max())
-                      for a, b in zip(outs[kid], p))
-            check(err == 0, f"{kid} counts at 8192^2 fast={fast}: kernel != "
-                            f"plain (max |diff| {err})")
-            worst[kid] = max(worst[kid], err)
-        check(all(torch.equal(a, b) for a, b in zip(*outs.values())),
+            for tiled in (True, False):
+                with (contextlib.nullcontext() if tiled
+                      else per_thread(cuda_scan)):
+                    outs[kid, tiled] = fn(Zd, threshold_angle=1.0, fast=fast,
+                                          out=unwritten(Zd), **kw)
+                torch.cuda.synchronize()
+                err = max(int((a.int() - b.int()).abs().max())
+                          for a, b in zip(outs[kid, tiled], p))
+                check(err == 0, f"{kid} counts at 8192^2 fast={fast} (tile "
+                                f"path {'on' if tiled else 'off'}): kernel "
+                                f"!= plain (max |diff| {err})")
+                worst[kid] = max(worst[kid], err)
+        check(all(torch.equal(a, b) for a, b in zip(outs["K1", True],
+                                                    outs["K5/counts", True])),
               f"K1 and K5 counts differ at 8192^2 fast={fast}")
         del p, outs
     variants = [("openness", False, {}), ("svf", False, {}),
@@ -869,55 +991,78 @@ def time_turns(fns, call):
     return times
 
 
-class all_masked:
-    """Within the block, the kernels' route mask is 0, so K1-K5 run the
-    masked ladder in every direction, as the kernels did before the
-    maskless ladder: a same-call baseline for the routes."""
+@contextlib.contextmanager
+def _switched(cuda_scan, name, value):
+    """Within the block, the module switch ``name`` of ``cuda_scan`` holds
+    ``value``."""
+    saved = getattr(cuda_scan, name)
+    setattr(cuda_scan, name, value)
+    try:
+        yield
+    finally:
+        setattr(cuda_scan, name, saved)
 
-    def __init__(self, cuda_scan):
-        self.cuda_scan = cuda_scan
 
-    def __enter__(self):
-        self.saved = self.cuda_scan._ALLOW_MASKLESS
-        self.cuda_scan._ALLOW_MASKLESS = 0
+def all_masked(cuda_scan):
+    """The kernels' route mask is 0, so K1-K5 run the masked ladder in
+    every direction, as the kernels did before the maskless ladder: a
+    same-call baseline for the routes."""
+    return _switched(cuda_scan, "_ALLOW_MASKLESS", 0)
 
-    def __exit__(self, *exc):
-        self.cuda_scan._ALLOW_MASKLESS = self.saved
+
+def per_thread(cuda_scan):
+    """The tile path is off, so K1 and K5/counts run every block on their
+    per-thread bodies, as they did before it: a same-call baseline for
+    the tile path."""
+    return _switched(cuda_scan, "_ALLOW_TILE", False)
 
 
 def timings(ntt, cuda_scan, Zd, mesh, card, share):
     """Phase 7: median of CUDA-event times, in turns, at 8192^2, lookup 50:
     the plain version, the kernel with every block on the masked ladder
     (``all_masked``), the dynamic route (K1-K4) and K5's static plan (K1,
-    K2), for K1 (both ladders), K2 (each mode, and openness on the fast
-    ladder), K3 and K4 (one 4096^2 block of the 2 x 2 mesh); each route
-    must take under ``ROUTE_GAIN`` of the all-masked time, which shows the
-    kernels take the maskless ladder (``share`` is the host's route
-    table's share, printed beside it); then the halo exchange alone and
-    the ``sharded_geomorphons`` call on the one-card 2 x 2 mesh against
-    the single-device ``geomorphons``."""
+    K2), for K1 (both ladders; also ``per_thread``, the dynamic and static
+    kernels with the tile path off), K2 (each mode, and openness on the
+    fast ladder), K3 and K4 (one 4096^2 block of the 2 x 2 mesh); each
+    route must take under ``ROUTE_GAIN`` of the all-masked time, which
+    shows the kernels take the maskless ladder (``share`` is the host's
+    route table's share, printed beside it), and each tile route under
+    ``TILE_GAIN`` of its per-thread time, which shows the tile path runs;
+    K5/counts at lookup 12, the enhance pass's second launch, the same
+    way; the ``geomorphons`` call with the tile path on and off; then the
+    halo exchange alone and the ``sharded_geomorphons`` call on the
+    one-card 2 x 2 mesh against the single-device ``geomorphons``."""
     H, W = Zd.shape
     base = dict(cellsize=10.0, lookup_pixels=MAIN_LOOKUP)
     res = {}
 
-    def record(kernel, label, times, shape=(H, W), **extra):
+    def record(kernel, label, times, shape=(H, W), lookup=MAIN_LOOKUP,
+               **extra):
         """``shape``: the output pixels one run makes."""
         for impl, ts in times.items():
             ms = statistics.median(ts)
             res[(kernel, label, impl)] = ms
             emit(phase="timing", kernel=kernel, impl=impl, **extra,
-                 shape=list(shape), lookup=MAIN_LOOKUP, runs=ts, median_ms=ms,
+                 shape=list(shape), lookup=lookup, runs=ts, median_ms=ms,
                  mpix_per_s=shape[0] * shape[1] / ms / 1e3, card=card)
 
-    def routes(plain, dynamic, static=None):
+    def under(switch, fn):
+        def switched(*args, **kw):
+            with switch(cuda_scan):
+                return fn(*args, **kw)
+        return switched
+
+    def routes(plain, dynamic, static=None, tiled=False):
         """The implementations to time in turns: the masked one runs the
-        dynamic kernel with the route mask 0."""
-        def masked(*args, **kw):
-            with all_masked(cuda_scan):
-                return dynamic(*args, **kw)
-        fns = {"plain": plain, "masked": masked, "dynamic": dynamic}
+        dynamic kernel with the route mask 0; ``tiled``: the per-thread
+        ones run the dynamic and static kernels with the tile path off."""
+        fns = {"plain": plain, "masked": under(all_masked, dynamic),
+               "dynamic": dynamic}
         if static is not None:
             fns["static"] = static
+        if tiled:
+            fns["per_thread"] = under(per_thread, dynamic)
+            fns["static_per_thread"] = under(per_thread, static)
         return fns
 
     for fast in (False, True):
@@ -925,9 +1070,18 @@ def timings(ntt, cuda_scan, Zd, mesh, card, share):
         record("K1", ladder, time_turns(
             routes(cuda_scan.openness_counts_torch,
                    cuda_scan.openness_counts_cuda,
-                   cuda_scan.openness_counts_plan_cuda),
+                   cuda_scan.openness_counts_plan_cuda, tiled=True),
             lambda fn: fn(Zd, threshold_angle=1.0, fast=fast, **base)),
             ladder=ladder)
+    # the enhance pass's second launch: K5/counts at lookup 12
+    k5 = cuda_scan.openness_counts_plan_cuda
+    record("K5/counts", "lookup12", time_turns(
+        {"plain": cuda_scan.openness_counts_torch,
+         "masked": under(all_masked, k5), "static": k5,
+         "static_per_thread": under(per_thread, k5)},
+        lambda fn: fn(Zd, threshold_angle=1.0, cellsize=10.0,
+                      lookup_pixels=ENHANCE_LOOKUP)),
+        ladder="exact", lookup=ENHANCE_LOOKUP)
     for mode, fast in (("openness", False), ("svf", False),
                        ("ternary", False), ("openness", True)):
         ladder = "fast" if fast else "exact"
@@ -952,19 +1106,31 @@ def timings(ntt, cuda_scan, Zd, mesh, card, share):
         shape=(H // 2, W // 2), ladder="exact", block=list(block.shape))
     res["K4 block"] = tuple(block.shape)
     del block
-    ratios = {}
+    ratios, tile_ratios = {}, {}
+    baseline = {"dynamic": "per_thread", "static": "static_per_thread"}
     for key, ms in res.items():
-        if isinstance(key, tuple) and key[2] in ("dynamic", "static"):
+        if isinstance(key, tuple) and key[2] not in ("plain", "masked"):
             ratios[" ".join(key)] = ms / res[(*key[:2], "masked")]
+            base_key = (*key[:2], baseline.get(key[2]))
+            if base_key in res:
+                tile_ratios[" ".join(key)] = ms / res[base_key]
     emit(phase="route_gain", over="all-masked launch, same run",
-         ratio=ratios, limit=ROUTE_GAIN, host_maskless_share=share)
+         ratio=ratios, limit=ROUTE_GAIN, host_maskless_share=share,
+         tile_over_per_thread=tile_ratios, tile_limit=TILE_GAIN)
     check(max(ratios.values()) < ROUTE_GAIN,
           f"a route is not well below its all-masked time: {ratios}")
+    check(max(tile_ratios.values()) < TILE_GAIN,
+          f"a tile route is not well below its per-thread time: "
+          f"{tile_ratios}")
     record("halo", "exchange", time_turns(
         {"2x2": lambda: halo_exchange_2d(_shard(Zd, grid), MAIN_LOOKUP,
                                          "nan")},
         lambda fn: fn()), what="halo_exchange_2d, 2x2 mesh on one card")
     gkw = dict(threshold_angle=1, **base)
+    record("geomorphons", "tile", time_turns(
+        {"tile": lambda: ntt.geomorphons(Zd, **gkw),
+         "per_thread": under(per_thread, lambda: ntt.geomorphons(Zd, **gkw))},
+        lambda fn: fn()), what="call, exact: K5/counts tile path on vs off")
     record("geomorphons", "wall", time_turns(
         {"single": lambda: ntt.geomorphons(Zd, **gkw),
          "sharded": lambda: ntt.dist.sharded_geomorphons(Zd, mesh, **gkw)},
@@ -972,14 +1138,40 @@ def timings(ntt, cuda_scan, Zd, mesh, card, share):
     return res
 
 
-def kernel_table(cuda_scan, res, launches, max_err):
+def tile_launch(cuda_scan, Zd, lookup, fast, plan):
+    """What K1's (``plan`` False) or K5/counts' launch on ``Zd`` gives its
+    tile kernel: the tile arguments the wrapper passes
+    (``cuda_scan._tile_args``), the dynamic shared memory of one tile CTA
+    as the library computes it for the launch
+    (``counts_tile_smem_bytes``), and the share of Zd's pixels in the
+    tiles.  The host model ``cuda_scan.tile_route`` must agree."""
+    from neilpy_tpu_torch import _build
+    ladder = cuda_scan._ladder(lookup, fast)
+    halo, ty0, ty1, tx0, tx1, tma = cuda_scan._tile_args(
+        Zd, ladder[-1], len(ladder), plan)
+    check(halo > 0, f"no tile at lookup {lookup} fast={fast}")
+    smem = int(_build.load().counts_tile_smem_bytes(halo, ladder[-1],
+                                                    len(ladder)))
+    model = cuda_scan.tile_route(*Zd.shape, ladder[-1], plan, len(ladder))
+    check(smem == model.smem_bytes and (halo, (ty0, ty1), (tx0, tx1))
+          == model[:3], f"tile launch {smem} B {halo} {(ty0, ty1, tx0, tx1)}"
+                        f" != host model {model}")
+    th, tw = cuda_scan.TILE
+    return {"smem_bytes": smem, "tile_load": "tma" if tma else "cp.async",
+            "tile_share": (ty1 - ty0) * th * (tx1 - tx0) * tw / Zd.numel()}
+
+
+def kernel_table(cuda_scan, res, launches, max_err, Zd):
     """The ``kernels`` line: per kernel its launches on its path, its
     error against the plain version, its time and the plain version's at
     8192^2, lookup 50, on the ladder and route its path runs (K1 and K2:
     the fast ladder, dynamic route; K3, K4 and K5: the exact ladder; K4
     per 4096^2 block), and its bound from this run's shapes; the other
-    ladder's and route's times are extra fields.  No single PyTorch call
-    computes these functions, so ``library_ms`` is null."""
+    ladder's and route's times are extra fields, and K1 and K5/counts
+    give their per-thread time (the tile path off), a tile CTA's shared
+    memory and the share of pixels in tiles, as their launches on ``Zd``
+    get them (``tile_launch``), K5/counts also its lookup-12 launch.  No single PyTorch call computes
+    these functions, so ``library_ms`` is null."""
     H, W = MAIN_SHAPE
     px = H * W
     steps = {lad: ladder_steps(H, W, cuda_scan._ladder(MAIN_LOOKUP,
@@ -1021,8 +1213,24 @@ def kernel_table(cuda_scan, res, launches, max_err):
     routes = ("plain", "masked", "dynamic", "static")
     exact_bound = {side: bound(steps["exact"], nbytes)[0] for side, nbytes in
                    (("counts", counts_bytes), ("sums", sums_bytes))}
-    kernels[0]["exact"] = {"ms": {r: res[("K1", "exact", r)] for r in routes},
+    kernels[0]["exact"] = {"ms": {r: res[("K1", "exact", r)] for r in
+                                  (*routes, "per_thread",
+                                   "static_per_thread")},
                            "bound_ms": exact_bound["counts"]}
+    for k, fast, plan, impl in ((0, True, False, "per_thread"),
+                                (4, False, True, "static_per_thread")):
+        kernels[k].update(
+            per_thread_ms=res[("K1", "fast" if fast else "exact", impl)],
+            **tile_launch(cuda_scan, Zd, MAIN_LOOKUP, fast, plan),
+            tile_source="neilpy_tpu_torch/csrc/ladder_tile.cuh")
+    lk12 = {r: res[("K5/counts", "lookup12", r)]
+            for r in ("plain", "masked", "static", "static_per_thread")}
+    kernels[4]["lookup12"] = dict(
+        ms=lk12["static"], per_thread_ms=lk12["static_per_thread"],
+        masked_ms=lk12["masked"], plain_ms=lk12["plain"],
+        bound_ms=bound(ladder_steps(H, W, cuda_scan._ladder(ENHANCE_LOOKUP)),
+                       counts_bytes)[0],
+        **tile_launch(cuda_scan, Zd, ENHANCE_LOOKUP, False, True))
     kernels[1]["exact"] = {
         "ms_by_mode": {m: {r: res[("K2", f"{m}/exact", r)] for r in routes}
                        for m in ("openness", "svf", "ternary")},
@@ -1067,6 +1275,9 @@ def main():
     max_err = kernel_vs_plain(cuda_scan, dev)
     for kid, err in routes_vs_plain(cuda_scan, dev).items():
         max_err[kid] = max(max_err.get(kid, 0), err)
+    err = tile_reaches_vs_plain(cuda_scan, dev)
+    for kid in ("K1", "K5/counts"):
+        max_err[kid] = max(max_err[kid], err)
     oracle_check(ntt, dev)
     with tempfile.TemporaryDirectory() as tmp:
         Z, dem = write_dem(ntt, tmp)
@@ -1088,7 +1299,7 @@ def main():
                 "K2": counts["K2"], "K3": counts["K3"],
                 "K5/reduced": counts["K5/reduced"],
                 "K4": sharded_counts["K4"]}
-    kernels = kernel_table(cuda_scan, res, launches, max_err)
+    kernels = kernel_table(cuda_scan, res, launches, max_err, Zd)
     kernels[2]["origin_entry_launches"] = sharded_counts["K3"]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -114,11 +114,12 @@ def load():
     # and ends with the stream
     head = [p, *hw, p, p, i, i, i, ctypes.c_uint]
     plan = [ll, ll, i, ll, ll, i]  # rlo, rhi, rmasks, clo, chi, cmasks
+    tile = [i] * 6  # halo, ty0, ty1, tx0, tx1, tma
     entries = {
-        # (..., T, num_pos, num_neg)
-        "openness_counts_launch": [*head, f, p, p],
-        # (..., plan, T, num_pos, num_neg)
-        "openness_counts_plan_launch": [*head, *plan, f, p, p],
+        # (..., tile, T, num_pos, num_neg)
+        "openness_counts_launch": [*head, *tile, f, p, p],
+        # (..., tile, plan, T, num_pos, num_neg)
+        "openness_counts_plan_launch": [*head, *tile, *plan, f, p, p],
         # (..., R, org_r, org_c, GH, GW, T, num_pos, num_neg)
         "openness_counts_block_launch": [*head, i, *hw, *hw, f, p, p],
         # (..., mx, mn)
@@ -134,4 +135,7 @@ def load():
         fn = getattr(lib, name)
         fn.argtypes = [*argtypes, p]
         fn.restype = ctypes.c_int
+    # (halo, Rmax, K) -> the dynamic shared memory of one tile CTA
+    lib.counts_tile_smem_bytes.argtypes = [i, i, i]
+    lib.counts_tile_smem_bytes.restype = ll
     return lib

@@ -239,17 +239,24 @@ __device__ __forceinline__ int64_t block_col0(int64_t col0) {
   return col0 + (int64_t)blockIdx.x * kBlockX;
 }
 
-// Bit d set: direction d is safe for this thread block on a whole raster
-// (H, W) and allowed by ``allow``.  Block-uniform: computed from blockIdx
-// only.
-__device__ __forceinline__ unsigned safe_directions(unsigned allow, int Rmax,
-                                                    int64_t H, int64_t W) {
-  const int64_t r0 = block_row0(0), c0 = block_col0(0);
+// Bit d set: direction d is safe for the thread block whose first pixel is
+// (r0, c0) on a whole raster (H, W) and allowed by ``allow``.
+__device__ __forceinline__ unsigned safe_directions_at(unsigned allow,
+                                                       int Rmax, int64_t H,
+                                                       int64_t W, int64_t r0,
+                                                       int64_t c0) {
   unsigned safe = 0u;
 #pragma unroll
   for (int d = 0; d < 8; ++d)
     safe |= window_on(r0, c0, d, Rmax, H, W) ? (1u << d) : 0u;
   return safe & allow;
+}
+
+// The same for this thread block of a 2-D grid of 32x8 blocks.
+// Block-uniform: computed from blockIdx only.
+__device__ __forceinline__ unsigned safe_directions(unsigned allow, int Rmax,
+                                                    int64_t H, int64_t W) {
+  return safe_directions_at(allow, Rmax, H, W, block_row0(0), block_col0(0));
 }
 
 // The same for a shard block: the window must lie on the (H, W) array and,
@@ -343,15 +350,24 @@ __device__ __forceinline__ void with_static_route(unsigned unsafe,
   }
 }
 
-// The unsafe set of this thread block under K5's plan: the union of its
-// row and column segments' sets and of the directions ``allow`` withholds
-// (a set outside the ten takes the all-masked body).
+// The unsafe set of the thread block whose first pixel is (r0, c0) under
+// K5's plan: the union of its row and column segments' sets and of the
+// directions ``allow`` withholds (a set outside the ten takes the
+// all-masked body).
+__device__ __forceinline__ unsigned plan_unsafe_at(
+    unsigned allow, int64_t r0, int64_t c0, int64_t rlo, int64_t rhi,
+    unsigned rmasks, int64_t clo, int64_t chi, unsigned cmasks) {
+  return segment_unsafe(r0, rlo, rhi, rmasks) |
+         segment_unsafe(c0, clo, chi, cmasks) | (~allow & 0xFFu);
+}
+
+// The same for this thread block of a 2-D grid of 32x8 blocks.
 __device__ __forceinline__ unsigned plan_unsafe(unsigned allow, int64_t rlo,
                                                 int64_t rhi, unsigned rmasks,
                                                 int64_t clo, int64_t chi,
                                                 unsigned cmasks) {
-  return segment_unsafe(block_row0(0), rlo, rhi, rmasks) |
-         segment_unsafe(block_col0(0), clo, chi, cmasks) | (~allow & 0xFFu);
+  return plan_unsafe_at(allow, block_row0(0), block_col0(0), rlo, rhi,
+                        rmasks, clo, chi, cmasks);
 }
 
 // The openness difference diff = atan(a) - atan(b), a = -mn, b = mx,

@@ -32,10 +32,20 @@
 // while cutting the per-step bookkeeping does move it.  So the directions
 // are unrolled (offsets become constants), the masked body has one 32-bit
 // step limit per direction, and the maskless body has no limit, no
-// epilogue and, on the dense exact ladder, no loaded ladder entry.  A
-// shared-memory tile with an R halo and TMA loads are later work.
+// epilogue and, on the dense exact ladder, no loaded ladder entry.
+//
+// The all-safe interior runs the tiled body of ladder_tile.cuh instead: a
+// 32x64 core and its Rmax halo in shared memory, filled once by TMA (or
+// cp.async), 8 pixels per thread, one shared load per pixel-step and the
+// step's ladder offset and scale read once per thread.  Tiles whose window
+// lies on the raster in every direction take it; the per-thread kernel
+// below runs every other 32x8 block, enumerated by a 1-D grid that leaves
+// out the tiles' rectangle (ladder_tile.cuh:unit_at).  With no tile (the
+// host's switch off, the route mask not 0xFF, or a window too large) the
+// per-thread kernel runs the whole raster.
 
 #include "openness_counts.cuh"
+#include "ladder_tile.cuh"
 
 namespace {
 
@@ -46,12 +56,13 @@ __global__ void __launch_bounds__(kBlockX * kBlockY)
 openness_counts_kernel(const float* __restrict__ Z, int64_t H, int64_t W,
                        const int* __restrict__ ladder,
                        const float* __restrict__ scales, int K, int Rmax,
-                       unsigned allow, float T,
-                       uint8_t* __restrict__ num_pos,
+                       unsigned allow, int hy0, int hy1, int hx0, int hx1,
+                       float T, uint8_t* __restrict__ num_pos,
                        uint8_t* __restrict__ num_neg) {
-  const DynamicRoute route{safe_directions(allow, Rmax, H, W)};
-  const int64_t c = (int64_t)blockIdx.x * kBlockX + threadIdx.x;
-  const int64_t r = (int64_t)blockIdx.y * kBlockY + threadIdx.y;
+  const UnitPos u = unit_at((W + kBlockX - 1) / kBlockX, hy0, hy1, hx0, hx1);
+  const DynamicRoute route{safe_directions_at(allow, Rmax, H, W, u.r0, u.c0)};
+  const int64_t c = u.c0 + threadIdx.x;
+  const int64_t r = u.r0 + threadIdx.y;
   if (r >= H || c >= W) return;
   const Pixel px = make_pixel(Z, H, W, r, c);
   counts_pixel<kDense>(px, W, ladder, scales, K, Rmax, T, route, num_pos,
@@ -60,12 +71,20 @@ openness_counts_kernel(const float* __restrict__ Z, int64_t H, int64_t W,
 
 template <bool kDense>
 int launch(const float* Z, long long H, long long W, const int* ladder,
-           const float* scales, int K, int Rmax, unsigned allow, float T,
+           const float* scales, int K, int Rmax, unsigned allow, int halo,
+           int ty0, int ty1, int tx0, int tx1, int tma, float T,
            uint8_t* num_pos, uint8_t* num_neg, cudaStream_t stream) {
+  const int err = launch_counts_tiles(Z, H, W, ladder, scales, K, Rmax, halo,
+                                      ty0, ty1, tx0, tx1, tma, T, num_pos,
+                                      num_neg, stream);
+  if (err != 0) return err;
+  const UnitHole hole = unit_hole(halo, ty0, ty1, tx0, tx1);
+  const unsigned blocks = unit_blocks(H, W, hole);
+  if (blocks == 0) return 0;
   openness_counts_kernel<kDense>
-      <<<grid_for(H, W), dim3(kBlockX, kBlockY), 0, stream>>>(
-          Z, (int64_t)H, (int64_t)W, ladder, scales, K, Rmax, allow, T,
-          num_pos, num_neg);
+      <<<blocks, dim3(kBlockX, kBlockY), 0, stream>>>(
+          Z, (int64_t)H, (int64_t)W, ladder, scales, K, Rmax, allow, hole.y0,
+          hole.y1, hole.x0, hole.x1, T, num_pos, num_neg);
   return (int)cudaGetLastError();
 }
 
@@ -74,18 +93,32 @@ int launch(const float* Z, long long H, long long W, const int* ladder,
 // C entry, bound with ctypes (neilpy_tpu_torch/ops/cuda_scan.py).  All
 // pointers are device pointers; ``dense`` says the ladder is 1..K; bit d
 // of ``allow`` lets direction d take the maskless ladder where it is safe
-// (0xFF; 0 runs the masked ladder everywhere); ``stream`` is a
-// cudaStream_t.  Launches on that stream, does not synchronise, and
-// returns cudaGetLastError().
+// (0xFF; 0 runs the masked ladder everywhere); ``halo`` (16, 32, 48, 64 or
+// 96; 0 for none) is the tile kernel's halo bucket and [ty0, ty1) x [tx0, tx1)
+// its tiles of 32x64 pixels, ``tma`` its load path (1 TMA, 0 cp.async), as
+// cuda_scan.tile_route gives them; ``stream`` is a cudaStream_t.  Launches
+// on that stream, does not synchronise, and returns cudaGetLastError() (or
+// the tensor map's or the shared-memory attribute's error).
 extern "C" int openness_counts_launch(const float* Z, long long H,
                                       long long W, const int* ladder,
                                       const float* scales, int K, int Rmax,
-                                      int dense, unsigned allow,
-                                      float T, unsigned char* num_pos,
+                                      int dense, unsigned allow, int halo,
+                                      int ty0, int ty1, int tx0, int tx1,
+                                      int tma, float T,
+                                      unsigned char* num_pos,
                                       unsigned char* num_neg, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  return dense ? launch<true>(Z, H, W, ladder, scales, K, Rmax, allow, T,
-                              num_pos, num_neg, s)
-               : launch<false>(Z, H, W, ladder, scales, K, Rmax, allow, T,
-                               num_pos, num_neg, s);
+  return dense ? launch<true>(Z, H, W, ladder, scales, K, Rmax, allow, halo,
+                              ty0, ty1, tx0, tx1, tma, T, num_pos, num_neg, s)
+               : launch<false>(Z, H, W, ladder, scales, K, Rmax, allow, halo,
+                               ty0, ty1, tx0, tx1, tma, T, num_pos, num_neg,
+                               s);
+}
+
+// C entry: the dynamic shared memory, in bytes, that one tile CTA of K1 or
+// K5/counts is launched with in halo bucket ``halo`` at ladder reach
+// ``Rmax`` with ``K`` entries (ladder_tile.cuh:tile_smem_bytes, the value
+// launch_tiles passes).
+extern "C" long long counts_tile_smem_bytes(int halo, int Rmax, int K) {
+  return tile_smem_bytes(halo, Rmax, K);
 }

@@ -44,6 +44,16 @@ plain versions run the same choice on any device when given ``route``,
 with ``torch.fmax`` / ``torch.fmin`` on the maskless pairs and +inf read
 off the array there, so a pair wrongly marked safe shows on the CPU.
 
+K1 and K5/counts run their all-safe interior on a third body, the tile
+kernel of ``csrc/ladder_tile.cuh``: a thread block owns ``TILE`` output
+pixels, copies them with their Rmax halo into shared memory once (TMA,
+or cp.async where TMA cannot address the raster) and runs the maskless
+step from there, 8 pixels per thread.  :func:`tile_route` is the host's
+model of which tiles take it (a rectangle of whole tiles, maskless in
+every direction over its whole window, and a window that fits in shared
+memory); every other 32x8 block runs the per-thread bodies as before.
+The outputs do not change.
+
 A shard block (K4, and K3 given ``origin``) separates two limits: the
 ladder ends at the edge of the block in memory, and the epilogue tests
 the last step against the edge of the GLOBAL raster, from the block's
@@ -69,6 +79,7 @@ from __future__ import annotations
 
 import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -89,7 +100,7 @@ __all__ = ["openness_counts", "openness_counts_torch",
            "openness_cuda", "skyview_cuda",
            "ternary_cuda", "openness_degrees", "skyview_from_sum",
            "BLOCK", "region_plan", "dynamic_safe", "plan_safe",
-           "route_table"]
+           "route_table", "TILE", "TileRoute", "tile_route"]
 
 # K2's modes, as the C entry numbers them
 _MODES = {"openness": 0, "svf": 1, "ternary": 2}
@@ -156,6 +167,17 @@ BLOCK = (8, 32)
 # as the kernels did before the maskless ladder (chip_smoke.py's timing
 # baseline); the outputs do not change.
 _ALLOW_MASKLESS = 0xFF
+# K1's and K5/counts' tile path (csrc/ladder_tile.cuh): off sends every
+# block to the per-thread bodies, the kernels as they were before it
+# (chip_smoke.py's same-call baseline); the outputs do not change
+_ALLOW_TILE = True
+# (rows, cols) of the tile kernel's core: 4 x 2 thread blocks
+TILE = (32, 64)
+# the tile kernel's halo buckets (its window pitch is TILE[1] + 2 * halo),
+# multiples of 16 floats for TMA's sake (csrc/ladder_tile.cuh), and the
+# most dynamic shared memory one thread block may use on an H100
+_TILE_HALOS = (16, 32, 48, 64, 96)
+SMEM_CAP = 232448
 
 
 def _resolve_specialize(specialize, interpret, fast):
@@ -314,6 +336,82 @@ def route_table(Z, lookup_pixels, fast=False, how_fast=20, specialize=False,
         safe = dynamic_safe((H, W), Rmax, grid, (core, core), org,
                             global_shape)
     return torch.from_numpy(safe).to(Z.device)
+
+
+class TileRoute(NamedTuple):
+    """Where K1 / K5/counts run the tile body (:func:`tile_route`):
+    ``halo`` the bucket (0: no tile), ``rows`` = (ty0, ty1) and ``cols`` =
+    (tx0, tx1) the rectangle of tiles of ``TILE`` pixels, ``smem_bytes``
+    the dynamic shared memory of one tile CTA."""
+
+    halo: int
+    rows: tuple
+    cols: tuple
+    smem_bytes: int
+
+    @property
+    def n_tiles(self):
+        return ((self.rows[1] - self.rows[0])
+                * (self.cols[1] - self.cols[0]))
+
+    def pixels(self, H, W):
+        """(H, W) numpy bool: the pixels the tile kernel computes."""
+        out = np.zeros((int(H), int(W)), dtype=bool)
+        th, tw = TILE
+        out[self.rows[0] * th:self.rows[1] * th,
+            self.cols[0] * tw:self.cols[1] * tw] = True
+        return out
+
+
+_NO_TILE = TileRoute(0, (0, 0), (0, 0), 0)
+
+
+def _tile_smem_bytes(halo, Rmax, K):
+    """``ladder_tile.cuh:tile_smem_bytes``: 128 bytes to align the window,
+    the window of (TILE[0] + 2 Rmax) rows of TILE[1] + 2 halo floats, the
+    (8, K) step table of 8-byte entries and the mbarrier."""
+    return 128 + 4 * (TILE[0] + 2 * Rmax) * (TILE[1] + 2 * halo) + 64 * K + 8
+
+
+@functools.lru_cache(maxsize=64)
+def tile_route(H, W, Rmax, specialize, K=None):
+    """The tiles of TILE pixels that take K1's (``specialize`` False) or
+    K5/counts' (True) tile body on an (H, W) raster at ladder reach
+    ``Rmax`` with ``K`` ladder entries (default ``Rmax``, the dense
+    ladder): a :class:`TileRoute`, the numpy model of the rectangle the
+    kernels are launched with.
+
+    A tile takes it only where every direction is maskless over its whole
+    window, and the window fits in shared memory: for K1 the core shifted
+    by d*1 .. d*Rmax lies on the raster in all 8 directions
+    (``window_on``, what ``dynamic_safe`` tests per 32x8 block); for K5 the
+    tile lies wholly in the plan's interior region (``region_plan``),
+    whose blocks are safe in every direction.  The halo is the smallest
+    bucket >= Rmax; a reach above the largest, or a window above
+    ``SMEM_CAP`` bytes (exact lookup 95 and up), gets no tile."""
+    H, W, Rmax = int(H), int(W), int(Rmax)
+    K = Rmax if K is None else int(K)
+    halo = next((h for h in _TILE_HALOS if h >= Rmax), 0)
+    if not halo or _tile_smem_bytes(halo, Rmax, K) > SMEM_CAP:
+        return _NO_TILE
+    th, tw = TILE
+    if specialize:
+        rlo, rhi, _, clo, chi, _ = region_plan(H, W, Rmax)
+        rows = (-(-rlo // th), rhi // th)
+        cols = (-(-clo // tw), chi // tw)
+    else:
+        rows = (-(-Rmax // th), (H - Rmax) // th)
+        cols = (-(-Rmax // tw), (W - Rmax) // tw)
+    if rows[1] <= rows[0] or cols[1] <= cols[0]:
+        return _NO_TILE
+    return TileRoute(halo, rows, cols, _tile_smem_bytes(halo, Rmax, K))
+
+
+def _tile_load(Z):
+    """The tile kernel's load path: TMA (1) where TMA can address the
+    raster, a row pitch that is a multiple of 16 bytes (W % 4 == 0) and a
+    16-byte aligned base; cp.async (0) otherwise."""
+    return int(Z.shape[1] % 4 == 0 and Z.data_ptr() % 16 == 0)
 
 
 # ----------------------------------------------------------------------
@@ -567,12 +665,24 @@ def _check_cuda(Z, name):
                          "(524280)")
 
 
+def _tile_args(Z, Rmax, K, plan):
+    """The tile arguments of K1's and K5/counts' C entries: (halo, ty0,
+    ty1, tx0, tx1, tma), all 0 when the tile path is off (``_ALLOW_TILE``),
+    the route mask withholds a direction, or no tile fits."""
+    t = (tile_route(*Z.shape, Rmax, plan, K)
+         if _ALLOW_TILE and _ALLOW_MASKLESS == 0xFF else _NO_TILE)
+    if not t.n_tiles:
+        return (0,) * 6
+    return (t.halo, *t.rows, *t.cols, _tile_load(Z))
+
+
 def _launch(Z, entry, cellsize, lookup_pixels, fast, how_fast, *args,
-            plan=False):
+            plan=False, tiles=False):
     """Launch C entry ``entry`` for raster ``Z`` with its ladder tables,
-    the dense-ladder flag and the route mask ``_ALLOW_MASKLESS``, then
-    K5's region plan if ``plan``, then ``args``, on Z's device and current
-    stream; raise on a CUDA error.  Does not synchronise."""
+    the dense-ladder flag and the route mask ``_ALLOW_MASKLESS``, then the
+    tile arguments if ``tiles`` (:func:`_tile_args`), then K5's region plan
+    if ``plan``, then ``args``, on Z's device and current stream; raise on
+    a CUDA error.  Does not synchronise."""
     lib = _build.load()
     ladder = _ladder(int(lookup_pixels), fast, how_fast)
     Rmax = ladder[-1]
@@ -584,34 +694,47 @@ def _launch(Z, entry, cellsize, lookup_pixels, fast, how_fast, *args,
         err = getattr(lib, entry)(
             Z.data_ptr(), H, W, ladder_t.data_ptr(), scales.data_ptr(),
             len(ladder), Rmax, int(dense), _ALLOW_MASKLESS,
+            *(_tile_args(Z, Rmax, len(ladder), plan) if tiles else ()),
             *(region_plan(H, W, Rmax) if plan else ()), *args, stream)
     if err != 0:
         raise RuntimeError(f"{entry} failed: CUDA error {err}")
 
 
 def _counts_cuda(Z, name, cellsize, lookup_pixels, threshold_angle, fast,
-                 how_fast, plan):
+                 how_fast, plan, out):
     _check_cuda(Z, name)
-    num_pos = torch.empty(Z.shape, dtype=torch.uint8, device=Z.device)
-    num_neg = torch.empty_like(num_pos)
+    if out is None:
+        num_pos = torch.empty(Z.shape, dtype=torch.uint8, device=Z.device)
+        num_neg = torch.empty_like(num_pos)
+    else:
+        num_pos, num_neg = out
+        for t in out:
+            if (t.dtype != torch.uint8 or t.shape != Z.shape
+                    or t.device != Z.device or not t.is_contiguous()):
+                raise ValueError(f"{name}: out must be two contiguous uint8 "
+                                 f"tensors of shape {tuple(Z.shape)} on "
+                                 f"{Z.device}")
     if Z.numel() == 0:
         return num_pos, num_neg, False
     _launch(Z, f"{name[:-len('_cuda')]}_launch", cellsize, lookup_pixels,
             fast, how_fast, _threshold_tangent(threshold_angle),
-            num_pos.data_ptr(), num_neg.data_ptr(), plan=plan)
+            num_pos.data_ptr(), num_neg.data_ptr(), plan=plan, tiles=True)
     return num_pos, num_neg, True
 
 
 def openness_counts_cuda(Z, cellsize=1.0, lookup_pixels=1,
-                         threshold_angle=1.0, fast=False, how_fast=20):
+                         threshold_angle=1.0, fast=False, how_fast=20,
+                         out=None):
     """(num_pos, num_neg) uint8 counts from K1 (``csrc/openness_counts.cu``),
     on the dynamic route.  ``Z`` must be a contiguous 2-D float32 CUDA
-    tensor; anything else raises.  Launches on the current stream and
-    does not synchronise.  ``openness_counts_cuda.launches`` counts the
-    launches of this process."""
+    tensor; anything else raises.  ``out``: the (num_pos, num_neg) pair to
+    write, contiguous uint8 tensors of Z's shape on its device (default:
+    new ones).  Launches on the current stream and does not synchronise.
+    ``openness_counts_cuda.launches`` counts the launches of this
+    process."""
     num_pos, num_neg, launched = _counts_cuda(
         Z, "openness_counts_cuda", cellsize, lookup_pixels, threshold_angle,
-        fast, how_fast, plan=False)
+        fast, how_fast, plan=False, out=out)
     openness_counts_cuda.launches += launched
     return num_pos, num_neg
 
@@ -620,14 +743,16 @@ openness_counts_cuda.launches = 0
 
 
 def openness_counts_plan_cuda(Z, cellsize=1.0, lookup_pixels=1,
-                              threshold_angle=1.0, fast=False, how_fast=20):
+                              threshold_angle=1.0, fast=False, how_fast=20,
+                              out=None):
     """K5 for the counts (``csrc/openness_counts_plan.cu``): K1's counts
     through the static region plan (:func:`region_plan`).  Same input
-    rules, stream and counter (``openness_counts_plan_cuda.launches``) as
+    rules, ``out``, stream and counter
+    (``openness_counts_plan_cuda.launches``) as
     :func:`openness_counts_cuda`."""
     num_pos, num_neg, launched = _counts_cuda(
         Z, "openness_counts_plan_cuda", cellsize, lookup_pixels,
-        threshold_angle, fast, how_fast, plan=True)
+        threshold_angle, fast, how_fast, plan=True, out=out)
     openness_counts_plan_cuda.launches += launched
     return num_pos, num_neg
 

@@ -9,12 +9,15 @@ Each source (default: ``openness_counts`` and ``openness_counts_plan``
 of ``neilpy_tpu_torch/csrc``) is compiled to a cubin with the package's
 own nvcc flags (``neilpy_tpu_torch/_build.py``), disassembled with
 ``cuobjdump -sass``, and every loop of every kernel (a backward branch)
-is reported as its instruction count, its global loads (``LDG``) and its
-ladder steps (one ``FMUL`` per step), so a masked step (ladder entry, Z
-and scale loads, two compare-selects) and a maskless step (Z and scale
-loads, max, min) can be told apart and counted.  One JSON line per
-kernel: ``{"source", "kernel", "instructions", "loops": [[instructions,
-LDG, steps, count], ...]}``, the commonest loops first.
+is reported as its instruction count, its global loads (``LDG``), its
+shared loads (``LDS``) and its pixel-steps (one ``FMUL`` per pixel and
+ladder step), so a masked step (ladder entry, Z and scale loads, two
+compare-selects), a maskless step (Z and scale loads, max, min) and the
+tile body's step (ladder_tile.cuh: one shared load per pixel, sub, mul,
+max, min, and one table load per thread for its pixels) can be told
+apart and counted.  One JSON line per kernel: ``{"source", "kernel",
+"instructions", "loops": [[instructions, LDG, LDS, pixel_steps,
+instructions_per_pixel_step, count], ...]}``, the commonest loops first.
 """
 
 import json
@@ -34,7 +37,8 @@ INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);")
 
 
 def loops(sass):
-    """[(instructions, LDG, FMUL), ...] of every backward-branch loop."""
+    """[(instructions, LDG, LDS, FMUL, instructions per FMUL), ...] of
+    every backward-branch loop."""
     code = [(int(a, 16), ins.strip()) for a, ins in INSTR.findall(sass)]
     at = {a: k for k, (a, _) in enumerate(code)}
     out = []
@@ -43,8 +47,10 @@ def loops(sass):
         if not target or int(target.group(1), 16) >= a:
             continue
         body = [i for _, i in code[at.get(int(target.group(1), 16), k):k + 1]]
+        steps = sum(bool(re.search(r"(^|\s)FMUL\b", i)) for i in body)
         out.append((len(body), sum("LDG" in i for i in body),
-                    sum(bool(re.search(r"(^|\s)FMUL\b", i)) for i in body)))
+                    sum(bool(re.search(r"(^|\s)LDS\b", i)) for i in body),
+                    steps, round(len(body) / steps, 3) if steps else None))
     return len(code), out
 
 
