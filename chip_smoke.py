@@ -12,17 +12,19 @@ openness / skyview / ternary reduction), K3 (the per-direction extrema
 planes, with and without a global origin), K4 (the counts of one
 haloed shard block) and K5 (the static region plan of K1 and K2).  Each
 kernel routes every (thread block, direction) pair to the masked or the
-maskless ladder, and K1 and K5/counts run their all-safe interior as
-tiles of 32 x 64 pixels with the Rmax halo in shared memory
-(``csrc/ladder_tile.cuh``, filled by TMA or by cp.async);
+maskless ladder, and K1, K3 (both entries), K4 and K5/counts run their
+all-safe interior as tiles of 32 x 64 pixels with the Rmax halo in shared
+memory (``csrc/ladder_tile.cuh``, filled by TMA or by cp.async; on a
+shard block only where the window also lies inside the global raster);
 ``routes_vs_plain`` holds both routes of K1 and K2 against each other
-(equal) and the plain version, K1 and K5/counts with the tile path on and
-off, and K3 and K4 against the plain version, on NaN holes (also inside
-tiles, on both load paths), unaligned shapes and lookups 1 to 100,
-``tile_reaches_vs_plain`` holds K1 and K5/counts against the plain
-version on every ladder that takes the tile path (every halo bucket, on
-both load paths), the counts kernels always writing into outputs
-pre-filled with 255 so a pixel no launch writes shows, and
+(equal) and the plain version, and K1, K3, K3's origin entry, K4 and
+K5/counts with the tile path on and off against the plain version, on NaN
+holes (also inside tiles, on both load paths), unaligned shapes and
+lookups 1 to 100, ``tile_reaches_vs_plain`` holds those five against the
+plain version on every ladder that takes the tile path (every halo
+bucket, on both load paths), the tiled kernels always writing into
+outputs pre-filled with a value they never write (255 for counts, NaN for
+planes) so a pixel no launch writes shows, and
 ``maskless_share`` checks that at 8192^2 the host's route table sends
 more than 90% of the pairs down the maskless ladder.  It checks the port against the f64 numpy
 oracles of ``tests/reference_impls.py``, then drives three paths at the
@@ -42,22 +44,24 @@ with ``imread``, at lookup 50:
   visible cards; 1 x 1 on one card) and on a 2 x 2 mesh naming the card
   four times (exact and fast; K4 x 4 each), ``sharded_openness`` and
   ``sharded_skyview`` on that mesh (K3's origin entry x 4 each), each
-  against the single-device function, then K4 and K3's origin entry
-  against their plain versions on every haloed block of that mesh, then
-  small multi-hop and non-divisible cases.
+  against the single-device function, then K4 and K3's origin entry, tile
+  path on and off, against their plain versions on every haloed block of
+  that mesh, then small multi-hop and non-divisible cases.
 
 Each path runs with every launch count set to 0 just before it and read
 just after, and every output is compared with its plain version (the
 sharded outputs with the single-device ones) at full size.  Then
 ``full_size_vs_plain`` holds the raw outputs of K1 and K5 (counts, both
 ladders), K2 and K5 (each reduction) and K3 (the planes) against their
-plain versions at 8192^2, lookup 50 (K1 and K5/counts tile path on and
+plain versions at 8192^2, lookup 50 (K1, K3 and K5/counts tile path on and
 off).  Last, it times each kernel on each route (all blocks masked,
-dynamic, static; K1 and K5/counts also per-thread, the tile path off) and
-its plain version with CUDA events, checks that both routes beat the
-all-masked launch (so the kernels really take the maskless ladder) and
-that the tile path beats the per-thread one (so it really runs), times
-K5/counts at lookup 12 (the enhance pass's second launch) and the
+dynamic, static; K1, K3, K4 and K5/counts also per-thread, the tile path
+off; K3's origin entry on a 2 x 2 mesh block, K4 on a 2 x 2 block on both
+ladders and on ``make_mesh()``'s 1 x 1 block) and its plain version with
+CUDA events, checks that both routes beat the all-masked launch (so the
+kernels really take the maskless ladder) and that the tile path beats the
+per-thread one (so it really runs), times K5/counts at lookup 12 (the
+enhance pass's second launch) and the
 ``geomorphons`` call with the tile path on and off, and times the sharded
 call against the single-device one; the kernel table gives each kernel's
 bound (operations at the f32 instruction rate or bytes at the HBM rate,
@@ -392,48 +396,90 @@ def route_rasters():
             ("515x771+nan in a tile", unaligned)]
 
 
-def unwritten(Zd):
-    """An ``out`` pair for the counts kernels, pre-filled with 255: a count
-    is at most 8, so a pixel that no kernel of the launch writes differs
-    from the plain version."""
-    return tuple(torch.full(Zd.shape, 255, dtype=torch.uint8,
-                            device=Zd.device) for _ in range(2))
+def unwritten(Zd, shape=None):
+    """An ``out`` pair for the counts kernels (of ``shape``, default Zd's;
+    K4: its core's), pre-filled with 255: a count is at most 8, so a pixel
+    that no kernel of the launch writes differs from the plain version."""
+    return tuple(torch.full(Zd.shape if shape is None else shape, 255,
+                            dtype=torch.uint8, device=Zd.device)
+                 for _ in range(2))
 
 
-def tile_case(cuda_scan, Z, Zd, lookup, fast, plan):
-    """(load path, a NaN inside a tile) of one K1 (``plan`` False) or
-    K5/counts launch as the host routes it (``cuda_scan._tile_args``, the
-    arguments the kernel gets), or None where no tile runs."""
+def unwritten_planes(Zd):
+    """An ``out`` pair for K3, pre-filled with NaN: the ladder never keeps
+    a NaN, so a plane value that no kernel of the launch writes differs
+    from the plain version (and fails ``float_err``)."""
+    return tuple(torch.full((8, *Zd.shape), float("nan"), device=Zd.device)
+                 for _ in range(2))
+
+
+def tile_case(cuda_scan, nan_grid, Zd, lookup, fast, plan=False,
+              **geometry):
+    """(load path, a NaN inside a tile) of one launch on the array ``Zd``
+    as the host routes it (``cuda_scan._tile_args``, the arguments the
+    kernel gets): K1 / K3 (``plan`` False) or K5/counts on a whole raster,
+    K4 or K3's origin entry given a shard block's ``geometry``
+    (``cuda_scan.tile_route``); ``nan_grid`` marks the NaN cells of the
+    kernel's grid (K4: the core).  None where no tile runs."""
     ladder = cuda_scan._ladder(lookup, fast)
-    args = cuda_scan._tile_args(Zd, ladder[-1], len(ladder), plan)
+    args = cuda_scan._tile_args(Zd, ladder[-1], len(ladder), plan,
+                                **geometry)
     if not args[0]:
         return None
-    t = cuda_scan.tile_route(*Z.shape, ladder[-1], plan, len(ladder))
+    t = cuda_scan.tile_route(*Zd.shape, ladder[-1], plan, len(ladder),
+                             **geometry)
     return ("tma" if args[5] else "cp.async",
-            bool((np.isnan(Z) & t.pixels(*Z.shape)).any()))
+            bool((nan_grid & t.pixels(*nan_grid.shape)).any()))
+
+
+def tiled_runs(cuda_scan):
+    """Tile path on, then off (``per_thread``): the contexts a comparison
+    runs each kernel under."""
+    return ((True, contextlib.nullcontext), (False,
+                                             lambda: per_thread(cuda_scan)))
+
+
+def planes_equal(got, want, what):
+    """K3's planes against the plain version's: equal by value (the
+    maskless body may keep +0 for -0), no NaN (an unwritten value of
+    ``unwritten_planes``); the max |diff| (0)."""
+    for a, b in zip(got, want):
+        check(torch.equal(a, b), f"{what}: kernel != plain (by value)")
+    return max(float_err(a, b, 0.0, what) for a, b in zip(got, want))
 
 
 def routes_vs_plain(cuda_scan, dev):
     """Phase 3b: both routes of K1 and K2 (the dynamic kernel and K5's
     static plan), exact and fast ladders, against each other and the
-    plain version, K1 and K5/counts with the tile path on and off; K3 and
-    K4 (dynamic route only) against the plain version; lookups 1 to 100,
-    so R also exceeds the smaller rasters.  Between routes every output is
-    equal (max |diff| 0, openness too); against the plain version counts,
-    codes and extrema exactly (extrema by value), openness and skyview
-    within the stated tolerances.  Both tile load paths must run, each
-    also on a raster with a NaN inside its tiles."""
+    plain version; K1, K5/counts, K3, K3's origin entry and K4 (dynamic
+    route only for the last three) with the tile path on and off against
+    the plain version, into outputs no launch leaves unwritten unseen;
+    lookups 1 to 100, so R also exceeds the smaller rasters.  Between
+    routes every output is equal (max |diff| 0, openness too); against the
+    plain version counts, codes and extrema exactly (extrema by value),
+    openness and skyview within the stated tolerances.  Both tile load
+    paths must run in each tiled kernel, each also on a raster with a NaN
+    inside its tiles."""
     worst = {"K1": 0, "K2": 0.0, "K3": 0.0, "K4": 0, "K5/counts": 0,
              "K5/reduced": 0.0}
     n = {k: 0 for k in worst}
-    tile_runs = {"tma": 0, "cp.async": 0}
-    nan_in_tile = {"tma": 0, "cp.async": 0}
+    tiled_kernels = ("K1", "K5/counts", "K3", "K3 origin", "K4")
+    tile_runs = {f"{k} {load}": 0 for k in tiled_kernels
+                 for load in ("tma", "cp.async")}
+    nan_in_tile = dict(tile_runs)
+
+    def count(kid, case):
+        if case is not None:
+            tile_runs[f"{kid} {case[0]}"] += 1
+            nan_in_tile[f"{kid} {case[0]}"] += case[1]
+
     lookups = (1, 2, 7, 12, 24, 33, 50, 100)
     modes = [("openness", {}), ("svf", {}),
              ("ternary", {"threshold_angle": 1.0}),
              ("ternary", {"threshold_angle": 1.0, "neg_mode": False})]
     for name, Z in route_rasters():
         Zd = torch.from_numpy(Z).to(dev)
+        nan = np.isnan(Z)
         for lk in lookups:
             for fast in (False, True):
                 what = f"{name} lookup={lk} fast={fast}"
@@ -443,9 +489,8 @@ def routes_vs_plain(cuda_scan, dev):
                 for kid, fn in (("K1", cuda_scan.openness_counts_cuda),
                                 ("K5/counts",
                                  cuda_scan.openness_counts_plan_cuda)):
-                    for tiled in (True, False):
-                        with (contextlib.nullcontext() if tiled
-                              else per_thread(cuda_scan)):
+                    for tiled, ctx in tiled_runs(cuda_scan):
+                        with ctx():
                             k = fn(Zd, threshold_angle=1.0,
                                    out=unwritten(Zd), **kw)
                         torch.cuda.synchronize()
@@ -455,11 +500,8 @@ def routes_vs_plain(cuda_scan, dev):
                                         f"{'on' if tiled else 'off'}) != "
                                         f"plain on {what} (max |diff| {err})")
                         n[kid] += 1
-                    case = tile_case(cuda_scan, Z, Zd, lk, fast,
-                                     kid == "K5/counts")
-                    if case is not None:
-                        tile_runs[case[0]] += 1
-                        nan_in_tile[case[0]] += case[1]
+                    count(kid, tile_case(cuda_scan, nan, Zd, lk, fast,
+                                         kid == "K5/counts"))
                 for mode, extra in modes:
                     mkw = dict(kw, **extra)
                     dyn = cuda_scan.openness_reduced_cuda(Zd, mode, **mkw)
@@ -478,13 +520,17 @@ def routes_vs_plain(cuda_scan, dev):
                             cuda_scan, mode, k, p,
                             f"{kid} {mode} {extra} on {what}"))
                         n[kid] += 1
-                k = cuda_scan.directional_extrema_cuda(Zd, **kw)
                 p = cuda_scan.directional_extrema_torch(Zd, **kw)
-                torch.cuda.synchronize()
-                for a, b in zip(k, p):
-                    check(torch.equal(a, b), f"K3 extrema != plain (by value)"
-                                             f" on {what}")
-                n["K3"] += 1
+                for tiled, ctx in tiled_runs(cuda_scan):
+                    with ctx():
+                        k = cuda_scan.directional_extrema_cuda(
+                            Zd, out=unwritten_planes(Zd), **kw)
+                    torch.cuda.synchronize()
+                    state = "on" if tiled else "off"
+                    worst["K3"] = max(worst["K3"], planes_equal(
+                        k, p, f"K3 extrema (tile path {state}) on {what}"))
+                    n["K3"] += 1
+                count("K3", tile_case(cuda_scan, nan, Zd, lk, fast))
         # K4 and K3's origin entry on blocks of this raster padded with NaN:
         # a corner block and, where the raster allows, an interior one
         H, W = Z.shape
@@ -494,29 +540,48 @@ def routes_vs_plain(cuda_scan, dev):
             for oy, ox in {(0, 0), (H - bh, W - bw), (H // 4, W // 4)}:
                 block = torch.from_numpy(np.ascontiguousarray(
                     Zp[oy:oy + bh + 2 * lk, ox:ox + bw + 2 * lk])).to(dev)
+                where = f"{name} block at {(oy, ox)} lookup={lk}"
                 args = (block, (oy, ox), (H, W), lk)
+                core_nan = nan[oy:oy + bh, ox:ox + bw]
                 for fast in (False, True):
                     bkw = dict(cellsize=2.0, threshold_angle=1.0, fast=fast)
-                    k = cuda_scan.openness_counts_block_cuda(*args, **bkw)
                     p = cuda_scan.openness_counts_block_torch(*args, **bkw)
-                    torch.cuda.synchronize()
-                    err = max(int((a.int() - b.int()).abs().max())
-                              for a, b in zip(k, p))
-                    check(err == 0, f"K4 != plain on {name} block at "
-                                    f"{(oy, ox)} lookup={lk} fast={fast}")
-                    n["K4"] += 1
-                okw = dict(cellsize=2.0, lookup_pixels=lk,
-                           origin=(oy - lk, ox - lk), global_shape=(H, W))
-                k = cuda_scan.directional_extrema_cuda(block, **okw)
+                    for tiled, ctx in tiled_runs(cuda_scan):
+                        with ctx():
+                            k = cuda_scan.openness_counts_block_cuda(
+                                *args, out=unwritten(block, (bh, bw)), **bkw)
+                        torch.cuda.synchronize()
+                        err = max(int((a.int() - b.int()).abs().max())
+                                  for a, b in zip(k, p))
+                        check(err == 0, f"K4 (tile path "
+                                        f"{'on' if tiled else 'off'}) != "
+                                        f"plain on {where} fast={fast}")
+                        n["K4"] += 1
+                    count("K4", tile_case(
+                        cuda_scan, core_nan, block, lk, fast,
+                        **cuda_scan._block_tiles(block, (oy, ox), (H, W),
+                                                 lk)))
+                org = (oy - lk, ox - lk)
+                okw = dict(cellsize=2.0, lookup_pixels=lk, origin=org,
+                           global_shape=(H, W))
                 p = cuda_scan.directional_extrema_torch(block, **okw)
-                torch.cuda.synchronize()
-                check(all(torch.equal(a, b) for a, b in zip(k, p)),
-                      f"K3 origin entry != plain on {name} block at "
-                      f"{(oy, ox)} lookup={lk}")
-                n["K3"] += 1
+                for tiled, ctx in tiled_runs(cuda_scan):
+                    with ctx():
+                        k = cuda_scan.directional_extrema_cuda(
+                            block, out=unwritten_planes(block), **okw)
+                    torch.cuda.synchronize()
+                    state = "on" if tiled else "off"
+                    worst["K3"] = max(worst["K3"], planes_equal(
+                        k, p, f"K3 origin entry (tile path {state}) on "
+                              f"{where}"))
+                    n["K3"] += 1
+                block_nan = np.isnan(block.cpu().numpy())
+                count("K3 origin", tile_case(cuda_scan, block_nan, block, lk,
+                                             False, origin=org,
+                                             global_shape=(H, W)))
     check(min(tile_runs.values()) > 0 and min(nan_in_tile.values()) > 0,
-          f"a tile load path did not run, or never over a NaN: launches "
-          f"{tile_runs}, with a NaN in a tile {nan_in_tile}")
+          f"a tile load path did not run in a kernel, or never over a NaN: "
+          f"launches {tile_runs}, with a NaN in a tile {nan_in_tile}")
     emit(phase="routes_vs_plain", cases=n, max_abs_err=worst,
          lookups=list(lookups), rasters=[r[0] for r in route_rasters()],
          between_routes_max_abs_err=0, tile_launches_by_load=tile_runs,
@@ -528,9 +593,12 @@ def tile_reaches_vs_plain(cuda_scan, dev):
     """Phase 3c: every ladder that takes the tile path (exact lookups 1 to
     94, the fast ladders of lookups 1 to 120), on a raster that TMA loads
     and on one that cp.async loads (W % 4 != 0), each with a NaN inside
-    the tiles: K1 and K5/counts, written into outputs pre-filled with 255,
-    against the plain version, max |diff| 0.  Every halo bucket must run
-    on both load paths in both kernels."""
+    the tiles: K1, K5/counts, K3, K3's origin entry and K4 (the raster as
+    a haloed block with R = lookup, whose core sits at (1024, 1024) of a
+    4096^2 raster, so only the block bounds its tiles; K4's window starts
+    R % 16 columns further left), written into outputs pre-filled with a
+    value they never write, against the plain version, max |diff| 0.
+    Every halo bucket must run on both load paths in every kernel."""
     r = np.random.default_rng(13)
     rasters = []
     for W in (512, 515):
@@ -541,34 +609,71 @@ def tile_reaches_vs_plain(cuda_scan, dev):
     for fast in (False, True):
         for lk in range(1, 121):
             ladders.setdefault(cuda_scan._ladder(lk, fast), (lk, fast))
-    fns = (("K1", cuda_scan.openness_counts_cuda, False),
-           ("K5/counts", cuda_scan.openness_counts_plan_cuda, True))
+    gshape = (4096, 4096)
     ran = {}
-    worst = 0
+    worst = {"counts": 0, "planes": 0.0}
     for name, Z in rasters:
         Zd = torch.from_numpy(Z).to(dev)
         for ladder, (lk, fast) in ladders.items():
-            runs = [(kid, fn, cuda_scan._tile_args(Zd, ladder[-1],
-                                                   len(ladder), plan))
-                    for kid, fn, plan in fns]
-            runs = [run for run in runs if run[2][0]]
-            if not runs:
-                continue
-            kw = dict(cellsize=2.0, lookup_pixels=lk, threshold_angle=1.0,
-                      fast=fast)
-            p = cuda_scan.openness_counts_torch(Zd, **kw)
-            for kid, fn, args in runs:
-                k = fn(Zd, out=unwritten(Zd), **kw)
+            Rmax, K = ladder[-1], len(ladder)
+            kw = dict(cellsize=2.0, lookup_pixels=lk, fast=fast)
+            origin = (1024 - lk, 1024 - lk)
+            k4 = (Zd, (1024, 1024), gshape, lk)
+            okw = dict(origin=origin, global_shape=gshape, **kw)
+            # the plain versions, computed once per ladder where a tile runs
+            plain_fns = {
+                "counts": lambda: cuda_scan.openness_counts_torch(
+                    Zd, threshold_angle=1.0, **kw),
+                "planes": lambda: cuda_scan.directional_extrema_torch(
+                    Zd, **kw),
+                "origin": lambda: cuda_scan.directional_extrema_torch(
+                    Zd, **okw),
+                "block": lambda: cuda_scan.openness_counts_block_torch(
+                    *k4, threshold_angle=1.0, fast=fast, cellsize=2.0)}
+            # (kernel, tile geometry, launch into ``out``, plain version)
+            runs = [
+                ("K1", dict(plan=False), lambda out: cuda_scan
+                 .openness_counts_cuda(Zd, threshold_angle=1.0, out=out,
+                                       **kw), "counts"),
+                ("K5/counts", dict(plan=True), lambda out: cuda_scan
+                 .openness_counts_plan_cuda(Zd, threshold_angle=1.0,
+                                            out=out, **kw), "counts"),
+                ("K3", dict(plan=False), lambda out: cuda_scan
+                 .directional_extrema_cuda(Zd, out=out, **kw), "planes"),
+                ("K3 origin", dict(plan=False, origin=origin,
+                                   global_shape=gshape),
+                 lambda out: cuda_scan.directional_extrema_cuda(
+                     Zd, out=out, **okw), "origin"),
+                ("K4", dict(plan=False, **cuda_scan._block_tiles(*k4)),
+                 lambda out: cuda_scan.openness_counts_block_cuda(
+                     *k4, threshold_angle=1.0, fast=fast, cellsize=2.0,
+                     out=out), "block")]
+            plain = {}
+            for kid, geom, launch, ref in runs:
+                args = cuda_scan._tile_args(Zd, Rmax, K, **geom)
+                if not args[0]:
+                    continue
+                if ref not in plain:
+                    plain[ref] = plain_fns[ref]()
+                p = plain[ref]
+                kind = "planes" if ref in ("planes", "origin") else "counts"
+                out = (unwritten(Zd, p[0].shape) if kind == "counts"
+                       else unwritten_planes(Zd))
+                k = launch(out)
                 torch.cuda.synchronize()
-                err = max(int((a.int() - b.int()).abs().max())
-                          for a, b in zip(k, p))
-                check(err == 0, f"{kid} tile path != plain on {name} "
-                                f"lookup={lk} fast={fast} halo={args[0]} "
-                                f"(max |diff| {err})")
-                worst = max(worst, err)
+                what = (f"{kid} tile path on {name} lookup={lk} fast={fast} "
+                        f"halo={args[0]}")
+                if kind == "counts":
+                    err = max(int((a.int() - b.int()).abs().max())
+                              for a, b in zip(k, p))
+                    check(err == 0, f"{what}: != plain (max |diff| {err})")
+                else:
+                    err = planes_equal(k, p, what)
+                worst[kind] = max(worst[kind], err)
                 key = f"{kid} {'tma' if args[5] else 'cp.async'} {args[0]}"
                 ran[key] = ran.get(key, 0) + 1
-    want = {f"{kid} {load} {h}" for kid, _, _ in fns
+    want = {f"{kid} {load} {h}"
+            for kid in ("K1", "K5/counts", "K3", "K3 origin", "K4")
             for load in ("tma", "cp.async") for h in cuda_scan._TILE_HALOS}
     check(want <= set(ran), f"halo buckets not run: {sorted(want - set(ran))}")
     emit(phase="tile_reaches_vs_plain", rasters=[r[0] for r in rasters],
@@ -601,11 +706,12 @@ def full_size_vs_plain(cuda_scan, Zd):
     """Phase 6b: the kernels' raw outputs at 8192^2, lookup 50, against
     their plain versions on the same input (uncounted): K1 and K5/counts
     (threshold 1, both ladders, tile path on and off) exactly and equal to
-    each other; K2 and
-    K5/reduced (each mode, exact ladder; K2 also openness on the fast
-    ladder) at the stated tolerances and equal to each other; K3's planes
-    exactly by value.  The paths compare only what these outputs become
-    (classes, degrees), which can hide a wrong count or extremum."""
+    each other; K2 and K5/reduced (each mode, exact ladder; K2 also
+    openness on the fast ladder) at the stated tolerances and equal to
+    each other; K3's planes (tile path on and off, into NaN-filled
+    outputs) exactly by value.  The paths compare only what these outputs
+    become (classes, degrees), which can hide a wrong count or
+    extremum."""
     kw = dict(cellsize=10.0, lookup_pixels=MAIN_LOOKUP)
     worst = {"K1": 0, "K5/counts": 0, "K2": 0.0, "K5/reduced": 0.0,
              "K3": 0.0}
@@ -615,9 +721,8 @@ def full_size_vs_plain(cuda_scan, Zd):
         outs = {}
         for kid, fn in (("K1", cuda_scan.openness_counts_cuda),
                         ("K5/counts", cuda_scan.openness_counts_plan_cuda)):
-            for tiled in (True, False):
-                with (contextlib.nullcontext() if tiled
-                      else per_thread(cuda_scan)):
+            for tiled, ctx in tiled_runs(cuda_scan):
+                with ctx():
                     outs[kid, tiled] = fn(Zd, threshold_angle=1.0, fast=fast,
                                           out=unwritten(Zd), **kw)
                 torch.cuda.synchronize()
@@ -649,14 +754,17 @@ def full_size_vs_plain(cuda_scan, Zd):
             worst[kid] = max(worst[kid], reduced_err(
                 cuda_scan, mode, k, p, f"{kid} {mode} fast={fast} at 8192^2"))
         del p, dyn, stat
-    k = cuda_scan.directional_extrema_cuda(Zd, **kw)
     p = cuda_scan.directional_extrema_torch(Zd, **kw)
-    torch.cuda.synchronize()
-    for a, b in zip(k, p):
-        check(torch.equal(a, b), "K3 planes at 8192^2: kernel != plain "
-                                 "(by value)")
-        worst["K3"] = max(worst["K3"], float_err(a, b, 0.0, "K3 at 8192^2"))
-    del k, p
+    for tiled, ctx in tiled_runs(cuda_scan):
+        with ctx():
+            k = cuda_scan.directional_extrema_cuda(
+                Zd, out=unwritten_planes(Zd), **kw)
+        torch.cuda.synchronize()
+        state = "on" if tiled else "off"
+        worst["K3"] = max(worst["K3"], planes_equal(
+            k, p, f"K3 planes at 8192^2 (tile path {state})"))
+        del k
+    del p
     emit(phase="full_size_vs_plain", shape=list(Zd.shape),
          lookup=MAIN_LOOKUP, max_abs_err=worst)
     return worst
@@ -927,10 +1035,13 @@ def sharded_path(ntt, cuda_scan, dev, Zd, G, G_fast):
 
 
 def mesh_blocks_vs_plain(cuda_scan, dist, Zd, mesh):
-    """K4 (both ladders) and K3's origin entry against their plain
-    versions on every haloed block of the 2 x 2 mesh at 8192^2, lookup 50,
-    the shapes and origins the sharded path gives them (4196^2 blocks,
-    cores at (0 | 4096, 0 | 4096)): counts and extrema planes exact."""
+    """K4 (both ladders) and K3's origin entry, tile path on and off,
+    against their plain versions on every haloed block of the 2 x 2 mesh
+    at 8192^2, lookup 50, the shapes and origins the sharded path gives
+    them (4196^2 blocks, cores at (0 | 4096, 0 | 4096)), written into
+    outputs pre-filled with a value they never write: counts and extrema
+    planes exact.  The blocks must take the TMA load (contiguous, 16-byte
+    aligned, 4196 floats wide), as ``halo_exchange_2d`` makes them."""
     from neilpy_tpu_torch.dist.halo import _shard, halo_exchange_2d
     R = MAIN_LOOKUP
     H, W = Zd.shape
@@ -938,36 +1049,64 @@ def mesh_blocks_vs_plain(cuda_scan, dist, Zd, mesh):
     bshape = (H // ny, W // nx)
     blocks = halo_exchange_2d(_shard(Zd, mesh.devices), R, "nan")
     k4 = k3 = n4 = n3 = 0
+    loads = set()
     for y, row in enumerate(blocks):
         for x, block in enumerate(row):
             oy, ox = dist.block_origin(bshape, (y, x))
             where = f"2x2 block {(y, x)} at origin {(oy, ox)}"
+            args = (block, (oy, ox), (H, W), R)
             for fast in (False, True):
-                args = (block, (oy, ox), (H, W), R)
                 kw = dict(cellsize=10.0, threshold_angle=1.0, fast=fast)
-                k = cuda_scan.openness_counts_block_cuda(*args, **kw)
                 p = cuda_scan.openness_counts_block_torch(*args, **kw)
-                err = max(int((a.int() - b.int()).abs().max())
-                          for a, b in zip(k, p))
-                check(err == 0, f"K4 on {where} fast={fast}: kernel != plain "
-                                f"(max |diff| {err})")
-                k4 = max(k4, err)
-                n4 += 1
+                for tiled, ctx in tiled_runs(cuda_scan):
+                    with ctx():
+                        k = cuda_scan.openness_counts_block_cuda(
+                            *args, out=unwritten(block, bshape), **kw)
+                    err = max(int((a.int() - b.int()).abs().max())
+                              for a, b in zip(k, p))
+                    check(err == 0, f"K4 on {where} fast={fast} (tile path "
+                                    f"{'on' if tiled else 'off'}): kernel "
+                                    f"!= plain (max |diff| {err})")
+                    k4 = max(k4, err)
+                    n4 += 1
+                loads.add(tile_case(cuda_scan, np.zeros(bshape, bool), block,
+                                    R, fast, **cuda_scan._block_tiles(*args)))
             kw = dict(cellsize=10.0, lookup_pixels=R, origin=(oy - R, ox - R),
                       global_shape=(H, W))
-            k = cuda_scan.directional_extrema_cuda(block, **kw)
             p = cuda_scan.directional_extrema_torch(block, **kw)
-            for a, b in zip(k, p):
-                what = f"K3 origin entry on {where}"
-                check(torch.equal(a, b), f"{what}: kernel != plain")
-                k3 = max(k3, float_err(a, b, 0.0, what))
-            n3 += 1
-            del k, p
+            for tiled, ctx in tiled_runs(cuda_scan):
+                with ctx():
+                    k = cuda_scan.directional_extrema_cuda(
+                        block, out=unwritten_planes(block), **kw)
+                state = "on" if tiled else "off"
+                k3 = max(k3, planes_equal(
+                    k, p, f"K3 origin entry on {where} (tile path {state})"))
+                n3 += 1
+                del k
+            loads.add(tile_case(cuda_scan, np.zeros(block.shape, bool), block,
+                                R, False, origin=kw["origin"],
+                                global_shape=(H, W)))
+            del p
+    check(loads == {("tma", False)},
+          f"the 2x2 blocks' tile launches took {loads}, expected TMA")
     emit(phase="kernel_vs_plain", kernel="K4", cases=n4, max_abs_err=k4,
-         at="every 2x2 mesh block, 8192^2, lookup 50")
+         at="every 2x2 mesh block, 8192^2, lookup 50, tile path on and off",
+         tile_load="tma")
     emit(phase="kernel_vs_plain", kernel="K3 origin entry", cases=n3,
-         max_abs_err=k3, at="every 2x2 mesh block, 8192^2, lookup 50")
+         max_abs_err=k3, tile_load="tma",
+         at="every 2x2 mesh block, 8192^2, lookup 50, tile path on and off")
     return {"K4": k4, "K3": k3}
+
+
+def sharded_blocks(Zd, mesh):
+    """The haloed blocks the timings and the kernel table use: block (0, 0)
+    of the 2 x 2 ``mesh`` (a 4096^2 core at (0, 0) with its halo, 4196^2)
+    and ``make_mesh()``'s block on one card (the whole raster with its
+    halo, 8292^2), as ``halo_exchange_2d`` makes them."""
+    from neilpy_tpu_torch.dist.halo import _shard, halo_exchange_2d
+    return (halo_exchange_2d(_shard(Zd, mesh.devices), MAIN_LOOKUP,
+                             "nan")[0][0],
+            halo_exchange_2d([[Zd]], MAIN_LOOKUP, "nan")[0][0])
 
 
 def time_turns(fns, call):
@@ -1011,9 +1150,9 @@ def all_masked(cuda_scan):
 
 
 def per_thread(cuda_scan):
-    """The tile path is off, so K1 and K5/counts run every block on their
-    per-thread bodies, as they did before it: a same-call baseline for
-    the tile path."""
+    """The tile path is off, so K1, K3, K4 and K5/counts run every block
+    on their per-thread bodies, as they did before it: a same-call
+    baseline for the tile path."""
     return _switched(cuda_scan, "_ALLOW_TILE", False)
 
 
@@ -1021,10 +1160,13 @@ def timings(ntt, cuda_scan, Zd, mesh, card, share):
     """Phase 7: median of CUDA-event times, in turns, at 8192^2, lookup 50:
     the plain version, the kernel with every block on the masked ladder
     (``all_masked``), the dynamic route (K1-K4) and K5's static plan (K1,
-    K2), for K1 (both ladders; also ``per_thread``, the dynamic and static
-    kernels with the tile path off), K2 (each mode, and openness on the
-    fast ladder), K3 and K4 (one 4096^2 block of the 2 x 2 mesh); each
-    route must take under ``ROUTE_GAIN`` of the all-masked time, which
+    K2), for K1 (both ladders), K2 (each mode, and openness on the fast
+    ladder), K3 (whole raster, and its origin entry on block (0, 0) of the
+    2 x 2 mesh, 4196^2) and K4 (that block's 4096^2 core on both ladders,
+    and ``make_mesh()``'s 1 x 1 block on one card, 8292^2); K1, K3 and K4
+    also ``per_thread``, the dynamic (and K1's static) kernels with the tile
+    path off; each route must take under ``ROUTE_GAIN`` of the all-masked
+    time, which
     shows the kernels take the maskless ladder (``share`` is the host's
     route table's share, printed beside it), and each tile route under
     ``TILE_GAIN`` of its per-thread time, which shows the tile path runs;
@@ -1062,7 +1204,8 @@ def timings(ntt, cuda_scan, Zd, mesh, card, share):
             fns["static"] = static
         if tiled:
             fns["per_thread"] = under(per_thread, dynamic)
-            fns["static_per_thread"] = under(per_thread, static)
+            if static is not None:
+                fns["static_per_thread"] = under(per_thread, static)
         return fns
 
     for fast in (False, True):
@@ -1091,21 +1234,34 @@ def timings(ntt, cuda_scan, Zd, mesh, card, share):
                    cuda_scan.openness_reduced_plan_cuda),
             lambda fn: fn(Zd, mode, threshold_angle=1.0, fast=fast, **base)),
             mode=mode, ladder=ladder)
-    record("K3", "exact", time_turns(
-        routes(cuda_scan.directional_extrema_torch,
-               cuda_scan.directional_extrema_cuda),
-        lambda fn: fn(Zd, **base)), ladder="exact")
+    k3 = routes(cuda_scan.directional_extrema_torch,
+                cuda_scan.directional_extrema_cuda, tiled=True)
+    record("K3", "exact", time_turns(k3, lambda fn: fn(Zd, **base)),
+           ladder="exact")
 
     from neilpy_tpu_torch.dist.halo import _shard, halo_exchange_2d
     grid = mesh.devices
-    block = halo_exchange_2d(_shard(Zd, grid), MAIN_LOOKUP, "nan")[0][0]
-    record("K4", "exact", time_turns(
-        routes(cuda_scan.openness_counts_block_torch,
-               cuda_scan.openness_counts_block_cuda),
-        lambda fn: fn(block, (0, 0), (H, W), threshold_angle=1.0, **base)),
-        shape=(H // 2, W // 2), ladder="exact", block=list(block.shape))
+    R = MAIN_LOOKUP
+    block, one = sharded_blocks(Zd, mesh)
+    record("K3", "origin", time_turns(
+        k3, lambda fn: fn(block, origin=(-R, -R), global_shape=(H, W),
+                          **base)),
+        shape=tuple(block.shape), ladder="exact", block=list(block.shape))
+    k4 = routes(cuda_scan.openness_counts_block_torch,
+                cuda_scan.openness_counts_block_cuda, tiled=True)
+    for fast in (False, True):
+        ladder = "fast" if fast else "exact"
+        record("K4", ladder, time_turns(
+            k4, lambda fn: fn(block, (0, 0), (H, W), threshold_angle=1.0,
+                              fast=fast, **base)),
+            shape=(H // 2, W // 2), ladder=ladder, block=list(block.shape))
     res["K4 block"] = tuple(block.shape)
-    del block
+    record("K4", "1x1", time_turns(
+        k4, lambda fn: fn(one, (0, 0), (H, W), threshold_angle=1.0,
+                          **base)),
+        ladder="exact", block=list(one.shape))
+    res["K4 1x1 block"] = tuple(one.shape)
+    del block, one
     ratios, tile_ratios = {}, {}
     baseline = {"dynamic": "per_thread", "static": "static_per_thread"}
     for key, ms in res.items():
@@ -1138,49 +1294,59 @@ def timings(ntt, cuda_scan, Zd, mesh, card, share):
     return res
 
 
-def tile_launch(cuda_scan, Zd, lookup, fast, plan):
-    """What K1's (``plan`` False) or K5/counts' launch on ``Zd`` gives its
-    tile kernel: the tile arguments the wrapper passes
-    (``cuda_scan._tile_args``), the dynamic shared memory of one tile CTA
-    as the library computes it for the launch
-    (``counts_tile_smem_bytes``), and the share of Zd's pixels in the
-    tiles.  The host model ``cuda_scan.tile_route`` must agree."""
+def tile_launch(cuda_scan, Zd, lookup, fast, plan=False, **geometry):
+    """What a launch on the array ``Zd`` gives its tile kernel: the tile
+    arguments the wrapper passes (``cuda_scan._tile_args``; K4 and K3's
+    origin entry with the block's ``geometry``), the dynamic shared memory
+    of one tile CTA as the library computes it for the launch
+    (``ladder_tile_smem_bytes``), and the share of the grid's pixels (K4:
+    the core's) in the tiles.  The host model ``cuda_scan.tile_route``
+    must agree."""
     from neilpy_tpu_torch import _build
     ladder = cuda_scan._ladder(lookup, fast)
     halo, ty0, ty1, tx0, tx1, tma = cuda_scan._tile_args(
-        Zd, ladder[-1], len(ladder), plan)
-    check(halo > 0, f"no tile at lookup {lookup} fast={fast}")
-    smem = int(_build.load().counts_tile_smem_bytes(halo, ladder[-1],
+        Zd, ladder[-1], len(ladder), plan, **geometry)
+    check(halo > 0, f"no tile at lookup {lookup} fast={fast} {geometry}")
+    smem = int(_build.load().ladder_tile_smem_bytes(halo, ladder[-1],
                                                     len(ladder)))
-    model = cuda_scan.tile_route(*Zd.shape, ladder[-1], plan, len(ladder))
+    model = cuda_scan.tile_route(*Zd.shape, ladder[-1], plan, len(ladder),
+                                 **geometry)
     check(smem == model.smem_bytes and (halo, (ty0, ty1), (tx0, tx1))
           == model[:3], f"tile launch {smem} B {halo} {(ty0, ty1, tx0, tx1)}"
                         f" != host model {model}")
     th, tw = cuda_scan.TILE
+    grid = geometry.get("core") or Zd.shape
     return {"smem_bytes": smem, "tile_load": "tma" if tma else "cp.async",
-            "tile_share": (ty1 - ty0) * th * (tx1 - tx0) * tw / Zd.numel()}
+            "tile_share": (ty1 - ty0) * th * (tx1 - tx0) * tw
+            / (grid[0] * grid[1])}
 
 
-def kernel_table(cuda_scan, res, launches, max_err, Zd):
+def kernel_table(cuda_scan, res, launches, max_err, Zd, blocks):
     """The ``kernels`` line: per kernel its launches on its path, its
     error against the plain version, its time and the plain version's at
     8192^2, lookup 50, on the ladder and route its path runs (K1 and K2:
     the fast ladder, dynamic route; K3, K4 and K5: the exact ladder; K4
-    per 4096^2 block), and its bound from this run's shapes; the other
-    ladder's and route's times are extra fields, and K1 and K5/counts
-    give their per-thread time (the tile path off), a tile CTA's shared
-    memory and the share of pixels in tiles, as their launches on ``Zd``
-    get them (``tile_launch``), K5/counts also its lookup-12 launch.  No single PyTorch call computes
-    these functions, so ``library_ms`` is null."""
+    per 4096^2 core of a 2 x 2 block), and its bound from this run's
+    shapes; the other ladder's and route's times are extra fields.  K1,
+    K3, K4 and K5/counts give their per-thread time (the tile path off), a
+    tile CTA's shared memory, the share of pixels in tiles and the load
+    path, as their launches get them (``tile_launch``; K3 on ``Zd``, K4 on
+    the 2 x 2 mesh's block (0, 0) of ``blocks``); K5/counts also its
+    lookup-12 launch, K3 its origin entry on that block (``origin_entry``),
+    K4 its fast-ladder launch on it (``fast``) and its launch on
+    ``make_mesh()``'s 1 x 1 block (``one_by_one``).  No single PyTorch call
+    computes these functions, so ``library_ms`` is null."""
     H, W = MAIN_SHAPE
+    R = MAIN_LOOKUP
     px = H * W
-    steps = {lad: ladder_steps(H, W, cuda_scan._ladder(MAIN_LOOKUP,
-                                                       lad == "fast"))
-             for lad in ("exact", "fast")}
+    exact, fast = cuda_scan._ladder(R), cuda_scan._ladder(R, True)
+    steps = {"exact": ladder_steps(H, W, exact),
+             "fast": ladder_steps(H, W, fast)}
     bh, bw = H // 2, W // 2
     Hh, Wh = res["K4 block"]
     counts_bytes = 4 * px + 2 * px     # input once, outputs once
     sums_bytes = 4 * px + 8 * px
+    block_bytes = 4 * Hh * Wh + 2 * bh * bw
     rows = [
         # id, source name, TPU kernel line, timing key, route, ladder,
         # bound (steps, bytes)
@@ -1191,8 +1357,7 @@ def kernel_table(cuda_scan, res, launches, max_err, Zd):
         ("K3", "directional_extrema", 292, ("K3", "exact"), "dynamic",
          (steps["exact"], 4 * px + 64 * px)),
         ("K4", "openness_counts_block", 1121, ("K4", "exact"), "dynamic",
-         (ladder_steps(Hh, Wh, cuda_scan._ladder(MAIN_LOOKUP),
-                       core=(bh, bw)), 4 * Hh * Wh + 2 * bh * bw)),
+         (ladder_steps(Hh, Wh, exact, core=(bh, bw)), block_bytes)),
         ("K5/counts", "openness_counts_plan", 774, ("K1", "exact"),
          "static", (steps["exact"], counts_bytes)),
         ("K5/reduced", "openness_reduced_plan", 774,
@@ -1217,12 +1382,13 @@ def kernel_table(cuda_scan, res, launches, max_err, Zd):
                                   (*routes, "per_thread",
                                    "static_per_thread")},
                            "bound_ms": exact_bound["counts"]}
-    for k, fast, plan, impl in ((0, True, False, "per_thread"),
-                                (4, False, True, "static_per_thread")):
+    tile_source = "neilpy_tpu_torch/csrc/ladder_tile.cuh"
+    for k, fast_, plan, impl in ((0, True, False, "per_thread"),
+                                 (4, False, True, "static_per_thread")):
         kernels[k].update(
-            per_thread_ms=res[("K1", "fast" if fast else "exact", impl)],
-            **tile_launch(cuda_scan, Zd, MAIN_LOOKUP, fast, plan),
-            tile_source="neilpy_tpu_torch/csrc/ladder_tile.cuh")
+            per_thread_ms=res[("K1", "fast" if fast_ else "exact", impl)],
+            **tile_launch(cuda_scan, Zd, R, fast_, plan),
+            tile_source=tile_source)
     lk12 = {r: res[("K5/counts", "lookup12", r)]
             for r in ("plain", "masked", "static", "static_per_thread")}
     kernels[4]["lookup12"] = dict(
@@ -1239,8 +1405,44 @@ def kernel_table(cuda_scan, res, launches, max_err, Zd):
     kernels[0]["fast_static_ms"] = res[("K1", "fast", "static")]
     kernels[5]["ms_by_mode"] = {m: res[("K2", f"{m}/exact", "static")]
                                 for m in ("openness", "svf", "ternary")}
-    kernels[3]["shape"] = f"one {tuple(res['K4 block'])} haloed block of " \
-                          "8192^2, 2x2"
+
+    def timed(key):
+        """A launch's times: its tile, per-thread, masked, plain ms."""
+        return {"ms": res[(*key, "dynamic")],
+                "per_thread_ms": res[(*key, "per_thread")],
+                "masked_ms": res[(*key, "masked")],
+                "plain_ms": res[(*key, "plain")]}
+
+    block, one = blocks
+    block_geom = cuda_scan._block_tiles(block, (0, 0), (H, W), R)
+    kernels[2].update(
+        per_thread_ms=res[("K3", "exact", "per_thread")],
+        **tile_launch(cuda_scan, Zd, R, False), tile_source=tile_source)
+    kernels[2]["origin_entry"] = dict(
+        launches=launches["K3 origin"], **timed(("K3", "origin")),
+        bound_ms=bound(ladder_steps(Hh, Wh, exact), 4 * Hh * Wh
+                       + 64 * Hh * Wh)[0],
+        shape=f"one {(Hh, Wh)} haloed block of 8192^2, 2x2",
+        **tile_launch(cuda_scan, block, R, False, origin=(-R, -R),
+                      global_shape=(H, W)))
+    kernels[3].update(
+        per_thread_ms=res[("K4", "exact", "per_thread")],
+        **tile_launch(cuda_scan, block, R, False, **block_geom),
+        tile_source=tile_source,
+        shape=f"one {(Hh, Wh)} haloed block of 8192^2, 2x2")
+    kernels[3]["fast"] = dict(
+        **timed(("K4", "fast")),
+        bound_ms=bound(ladder_steps(Hh, Wh, fast, core=(bh, bw)),
+                       block_bytes)[0],
+        **tile_launch(cuda_scan, block, R, True, **block_geom))
+    H1, W1 = res["K4 1x1 block"]
+    kernels[3]["one_by_one"] = dict(
+        **timed(("K4", "1x1")),
+        bound_ms=bound(ladder_steps(H1, W1, exact, core=(H, W)),
+                       4 * H1 * W1 + 2 * px)[0],
+        shape=f"make_mesh()'s {(H1, W1)} haloed block, 1x1",
+        **tile_launch(cuda_scan, one, R, False,
+                      **cuda_scan._block_tiles(one, (0, 0), (H, W), R)))
     return kernels
 
 
@@ -1276,8 +1478,9 @@ def main():
     for kid, err in routes_vs_plain(cuda_scan, dev).items():
         max_err[kid] = max(max_err.get(kid, 0), err)
     err = tile_reaches_vs_plain(cuda_scan, dev)
-    for kid in ("K1", "K5/counts"):
-        max_err[kid] = max(max_err[kid], err)
+    for kid, kind in (("K1", "counts"), ("K5/counts", "counts"),
+                      ("K3", "planes"), ("K4", "counts")):
+        max_err[kid] = max(max_err[kid], err[kind])
     oracle_check(ntt, dev)
     with tempfile.TemporaryDirectory() as tmp:
         Z, dem = write_dem(ntt, tmp)
@@ -1297,10 +1500,11 @@ def main():
     launches = {"K1": main_counts["K1"],
                 "K5/counts": main_counts["K5/counts"],
                 "K2": counts["K2"], "K3": counts["K3"],
+                "K3 origin": sharded_counts["K3"],
                 "K5/reduced": counts["K5/reduced"],
                 "K4": sharded_counts["K4"]}
-    kernels = kernel_table(cuda_scan, res, launches, max_err, Zd)
-    kernels[2]["origin_entry_launches"] = sharded_counts["K3"]
+    kernels = kernel_table(cuda_scan, res, launches, max_err, Zd,
+                           sharded_blocks(Zd, mesh))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

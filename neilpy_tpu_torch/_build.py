@@ -120,12 +120,12 @@ def load():
         "openness_counts_launch": [*head, *tile, f, p, p],
         # (..., tile, plan, T, num_pos, num_neg)
         "openness_counts_plan_launch": [*head, *tile, *plan, f, p, p],
-        # (..., R, org_r, org_c, GH, GW, T, num_pos, num_neg)
-        "openness_counts_block_launch": [*head, i, *hw, *hw, f, p, p],
-        # (..., mx, mn)
-        "directional_extrema_launch": [*head, p, p],
-        # (..., org_r, org_c, GH, GW, mx, mn)
-        "directional_extrema_global_launch": [*head, *hw, *hw, p, p],
+        # (..., tile, R, org_r, org_c, GH, GW, T, num_pos, num_neg)
+        "openness_counts_block_launch": [*head, *tile, i, *hw, *hw, f, p, p],
+        # (..., tile, mx, mn)
+        "directional_extrema_launch": [*head, *tile, p, p],
+        # (..., tile, org_r, org_c, GH, GW, mx, mn)
+        "directional_extrema_global_launch": [*head, *tile, *hw, *hw, p, p],
         # (..., mode, neg_mode, T, out0, out1, code)
         "openness_reduced_launch": [*head, i, i, f, p, p, p],
         # (..., plan, mode, neg_mode, T, out0, out1, code)
@@ -136,6 +136,6 @@ def load():
         fn.argtypes = [*argtypes, p]
         fn.restype = ctypes.c_int
     # (halo, Rmax, K) -> the dynamic shared memory of one tile CTA
-    lib.counts_tile_smem_bytes.argtypes = [i, i, i]
-    lib.counts_tile_smem_bytes.restype = ll
+    lib.ladder_tile_smem_bytes.argtypes = [i, i, i]
+    lib.ladder_tile_smem_bytes.restype = ll
     return lib

@@ -230,13 +230,12 @@ __device__ __forceinline__ bool window_on(int64_t r0, int64_t c0, int d,
          c0 + kBlockX + (dc > 0 ? dc : 0) <= W;
 }
 
-// This thread block's first pixel in the array: the grid starts at
-// (row0, col0) of the array (K4's grid covers the core, row0 = col0 = R).
-__device__ __forceinline__ int64_t block_row0(int64_t row0) {
-  return row0 + (int64_t)blockIdx.y * kBlockY;
+// The first pixel of this thread block of a 2-D grid of 32x8 blocks.
+__device__ __forceinline__ int64_t block_row0() {
+  return (int64_t)blockIdx.y * kBlockY;
 }
-__device__ __forceinline__ int64_t block_col0(int64_t col0) {
-  return col0 + (int64_t)blockIdx.x * kBlockX;
+__device__ __forceinline__ int64_t block_col0() {
+  return (int64_t)blockIdx.x * kBlockX;
 }
 
 // Bit d set: direction d is safe for the thread block whose first pixel is
@@ -256,16 +255,16 @@ __device__ __forceinline__ unsigned safe_directions_at(unsigned allow,
 // Block-uniform: computed from blockIdx only.
 __device__ __forceinline__ unsigned safe_directions(unsigned allow, int Rmax,
                                                     int64_t H, int64_t W) {
-  return safe_directions_at(allow, Rmax, H, W, block_row0(0), block_col0(0));
+  return safe_directions_at(allow, Rmax, H, W, block_row0(), block_col0());
 }
 
-// The same for a shard block: the window must lie on the (H, W) array and,
-// shifted by the array's global origin (org_r, org_c) of its pixel (0, 0),
-// inside the (GH, GW) raster, so the last step needs no epilogue.
-__device__ __forceinline__ unsigned safe_directions_global(
-    unsigned allow, int Rmax, int64_t H, int64_t W, int64_t row0,
-    int64_t col0, int64_t org_r, int64_t org_c, int64_t GH, int64_t GW) {
-  const int64_t r0 = block_row0(row0), c0 = block_col0(col0);
+// The same for a shard block whose first pixel is (r0, c0) of the array:
+// the window must lie on the (H, W) array and, shifted by the array's
+// global origin (org_r, org_c) of its pixel (0, 0), inside the (GH, GW)
+// raster, so the last step needs no epilogue.
+__device__ __forceinline__ unsigned safe_directions_global_at(
+    unsigned allow, int Rmax, int64_t H, int64_t W, int64_t r0, int64_t c0,
+    int64_t org_r, int64_t org_c, int64_t GH, int64_t GW) {
   unsigned safe = 0u;
 #pragma unroll
   for (int d = 0; d < 8; ++d) {
@@ -366,7 +365,7 @@ __device__ __forceinline__ unsigned plan_unsafe(unsigned allow, int64_t rlo,
                                                 int64_t rhi, unsigned rmasks,
                                                 int64_t clo, int64_t chi,
                                                 unsigned cmasks) {
-  return plan_unsafe_at(allow, block_row0(0), block_col0(0), rlo, rhi,
+  return plan_unsafe_at(allow, block_row0(), block_col0(), rlo, rhi,
                         rmasks, clo, chi, cmasks);
 }
 

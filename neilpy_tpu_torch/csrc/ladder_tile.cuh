@@ -1,31 +1,42 @@
-// The tiled interior body of the counts kernels K1 (openness_counts.cu) and
-// K5/counts (openness_counts_plan.cu): a thread block (CTA) owns a core of
-// kTileH x kTileW output pixels, copies the core with an Rmax-wide halo
+// The tiled interior body of the ladder kernels: K1 (openness_counts.cu),
+// K5/counts (openness_counts_plan.cu), K4 (openness_counts_block.cu) and K3,
+// both entries (directional_extrema.cu).  A thread block (CTA) owns a core
+// of kTileH x kTileW output pixels, copies the core with an Rmax-wide halo
 // into shared memory once, and runs every ladder step of the core from
 // there, kTileRows x kTileCols pixels per thread.
 //
-// Replaces, for the all-safe interior, the TPU kernel's R-haloed window
-// (neilpy_tpu/ops/pallas_scan.py:_counts_kernel, its VMEM ``win`` filled by
-// one DMA per tile), which the per-thread bodies of ladder.cuh leave to L1.
+// Replaces, for the all-safe interior, the TPU kernels' R-haloed window
+// (neilpy_tpu/ops/pallas_scan.py:_counts_kernel and _extrema_kernel, their
+// VMEM ``win`` filled by one DMA per tile), which the per-thread bodies of
+// ladder.cuh leave to L1.
 //
 // Where it runs: only on tiles whose whole window, the core shifted by
-// d*1 .. d*Rmax in all 8 directions, lies on the raster, so every direction
-// takes the maskless step (ladder.cuh:scan_ladder_safe) and no read needs
-// a test.  The host picks the tiles (ops/cuda_scan.py:tile_route): for K1
-// the tiles where window_on holds for every direction, for K5 the tiles
-// that lie wholly in the plan's interior region.  They form a rectangle of
-// tiles, which the per-thread kernels leave out of their grid
-// (unit_at below); every other pixel runs the per-thread bodies with
-// their per-32x8-block routing, unchanged.  A window that does not fit in
-// shared memory (Rmax above the largest halo bucket, or more than the
-// 232,448 bytes one block may use: exact lookup 95 and up) gets no tile,
-// and the whole raster runs the per-thread bodies.
+// d*1 .. d*Rmax in all 8 directions, lies on the array and, for a shard
+// block (K4, K3's origin entry), inside the global raster, so every
+// direction takes the maskless step (ladder.cuh:scan_ladder_safe), no read
+// needs a test and no last step needs the edge epilogue.  The host picks
+// the tiles (ops/cuda_scan.py:tile_route): for K1, K3 and K4 the tiles
+// where the block predicate (window_on, safe_directions_global_at) holds in
+// every direction, for K5 the tiles that lie wholly in the plan's interior
+// region.  They form a rectangle of tiles of a grid that starts at array
+// pixel (row0, col0) (TileFrame: K4's grid is its core, at (R, R)), which
+// the per-thread kernels leave out of their grid (unit_at below); every
+// other pixel runs the per-thread bodies with their per-32x8-block routing,
+// unchanged.  A window that does not fit in shared memory (Rmax plus the
+// column shift above the largest halo bucket, or more than the 232,448
+// bytes one block may use: exact lookup 95 and up) gets no tile, and the
+// whole grid runs the per-thread bodies.
+//
+// What a tile makes of the extrema is the kernel's template parameter: the
+// counts (CountsOut: classify and two uint8 votes, at an output pitch of
+// their own, so K4 writes its core-shaped outputs) or the planes
+// (PlanesOut: K3's mx and mn, stored per direction).  The step loop is one.
 //
 // The window: (kTileH + 2 Rmax) rows of a pitch of kTileW + 2 kHalo floats,
-// kHalo a compile-time bucket >= Rmax (16, 32, 48, 64, 96), so every
-// pixel's offset from the thread's first pixel is an immediate.  Each
-// bucket is a multiple of 16 floats, so the TMA box starts 64-B aligned and
-// its rows are a multiple of 128 B: on an H100 a bucket of 50 (a box of
+// kHalo a compile-time bucket >= Rmax + tile_shift(col0) (16, 32, 48, 64,
+// 96), so every pixel's offset from the thread's first pixel is an
+// immediate.  Each bucket is a multiple of 16 floats, so the TMA box starts
+// 64-B aligned and its rows are a multiple of 128 B: on an H100 a bucket of 50 (a box of
 // 164-float rows starting 8 B off a 16-B boundary) stopped the kernel with
 // an illegal instruction, while the buckets 16, 32 and 96 ran.  That the
 // alignment was the cause is a hypothesis, not established; every bucket
@@ -33,9 +44,11 @@
 // load paths, chosen by the host by one rule (ops/cuda_scan.py:_tile_load):
 // - TMA (cp.async.bulk.tensor.2d with an mbarrier) when the row pitch is a
 //   multiple of 16 B and Z is 16-B aligned, as TMA needs: one box of the
-//   whole pitch, columns c0 - kHalo .. c0 + kTileW + kHalo (the columns
-//   beyond Rmax may fall off the raster; TMA fills them and no step reads
-//   them).  The tensor map comes from cuTensorMapEncodeTiled through
+//   whole pitch, array columns c0 - s - kHalo .. c0 - s + kTileW + kHalo
+//   for a core at array column c0, s = tile_shift(col0) (so the box starts
+//   on a multiple of 16 floats, as on a whole raster, where s = 0; the
+//   columns beyond Rmax may fall off the array: TMA fills them and no step
+//   reads them).  The tensor map comes from cuTensorMapEncodeTiled through
 //   cudaGetDriverEntryPoint, so the build links no driver library.
 // - cp.async, 4 bytes a thread, for any other raster (W % 4 != 0): only
 //   the columns c0 - Rmax .. c0 + kTileW + Rmax.  About 85 copies a
@@ -51,15 +64,17 @@
 //
 // What bounds it on this card: instruction issue, as the per-thread
 // bodies, but at about 5.4 SASS instructions per pixel-step against 8.9
-// (tools/ladder_sass.py); the window is read from L2 once per tile.  At
-// exact lookup 50 a tile takes 104,712 bytes of shared memory, so two
+// (tools/ladder_sass.py); the window is read from L2 once per tile.  K3's
+// planes add 64 B of stores per pixel (4.3 GB at 8192^2, about 1.3 ms at
+// the HBM rate), issued per direction while other CTAs run their ladders.
+// At exact lookup 50 a tile takes 104,712 bytes of shared memory, so two
 // tiles (16 warps) share an SM.
 //
 // Exactness: the ratio is the maskless body's, __fmul_rn(__fsub_rn(src,
 // core), scale) from the same host table, kept with fmaxf / fminf (a NaN
 // read is skipped), and each direction votes through ladder.cuh:classify,
 // so the counts equal the per-thread bodies' and the plain version's bit
-// for bit.
+// for bit, and the planes equal them by value (fmaxf may keep +0 for -0).
 
 #pragma once
 
@@ -71,8 +86,8 @@
 namespace neilpy_ladder {
 
 // The kernel and the host functions below are static: each source that
-// includes this file (K1 and K5/counts) gets its own copy of the kernel,
-// so no kernel is registered twice in the library.
+// includes this file gets its own copy of the kernels it instantiates, so
+// no kernel is registered twice in the library.
 
 // the core of one tile CTA and its thread layout: 32x8 threads, the
 // routing unit of the per-thread bodies, each with kTileRows x kTileCols
@@ -123,16 +138,101 @@ __device__ __forceinline__ void mbarrier_wait(uint64_t* bar, uint32_t phase) {
   }
 }
 
-// Counts of the tile (ty0 + blockIdx.y, tx0 + blockIdx.x); the host
-// guarantees its window lies on the raster and kHalo >= Rmax.
-template <int kHalo>
+// Where a launch's tiles lie: tile (ty, tx), ty0 <= ty, tx0 <= tx, covers
+// the pixels [ty * kTileH, +kTileH) x [tx * kTileW, +kTileW) of a grid
+// whose pixel (0, 0) is the array's pixel (row0, col0): (0, 0) for a whole
+// raster and K3's shard block, (R, R) for K4's core.
+struct TileFrame {
+  int ty0, tx0, row0, col0;
+};
+
+// The window's columns start kHalo + tile_shift(col0) columns left of the
+// core, so that the TMA box starts where it does on a whole raster: on a
+// multiple of 16 floats of the array, whatever col0 is.  The host takes a
+// halo bucket >= Rmax + tile_shift(col0) (ops/cuda_scan.py:tile_route).
+__host__ __device__ constexpr int tile_shift(int col0) { return col0 & 15; }
+
+// What a tile does with each direction's extrema, as a template parameter
+// of the kernel: ``direction`` after the ladder of direction d, ``finish``
+// after all eight; (r, c) is the thread's first pixel in the grid, its
+// others kBlockY rows and kBlockX columns apart.
+//
+// The counts (K1, K5/counts, K4): ladder.cuh:classify and the two uint8
+// votes, written at grid pixel (r, c) -> r * pitch + c.
+struct CountsOut {
+  float T;
+  uint8_t* num_pos;
+  uint8_t* num_neg;
+  int64_t pitch;
+  struct Acc {
+    int pos[kTileRows][kTileCols];
+    int neg[kTileRows][kTileCols];
+  };
+
+  __device__ __forceinline__ void direction(
+      Acc& acc, int, const float (&mx)[kTileRows][kTileCols],
+      const float (&mn)[kTileRows][kTileCols], int64_t, int64_t) const {
+#pragma unroll
+    for (int i = 0; i < kTileRows; ++i)
+#pragma unroll
+      for (int j = 0; j < kTileCols; ++j) {
+        bool gt, lt;
+        classify(mx[i][j], mn[i][j], T, gt, lt);
+        acc.pos[i][j] += gt ? 1 : 0;
+        acc.neg[i][j] += lt ? 1 : 0;
+      }
+  }
+
+  __device__ __forceinline__ void finish(const Acc& acc, int64_t r,
+                                         int64_t c) const {
+#pragma unroll
+    for (int i = 0; i < kTileRows; ++i)
+#pragma unroll
+      for (int j = 0; j < kTileCols; ++j) {
+        const int64_t p = (r + i * kBlockY) * pitch + c + j * kBlockX;
+        num_pos[p] = (uint8_t)acc.pos[i][j];
+        num_neg[p] = (uint8_t)acc.neg[i][j];
+      }
+  }
+};
+
+// The planes (K3): direction d's mx and mn stored as soon as its ladder
+// ends, at d * plane + r * pitch + c (the grid is the array), a warp
+// writing 32 consecutive floats of one plane row per pixel.
+struct PlanesOut {
+  float* mx_out;
+  float* mn_out;
+  int64_t pitch, plane;
+  struct Acc {};
+
+  __device__ __forceinline__ void direction(
+      Acc&, int d, const float (&mx)[kTileRows][kTileCols],
+      const float (&mn)[kTileRows][kTileCols], int64_t r, int64_t c) const {
+#pragma unroll
+    for (int i = 0; i < kTileRows; ++i)
+#pragma unroll
+      for (int j = 0; j < kTileCols; ++j) {
+        const int64_t p = d * plane + (r + i * kBlockY) * pitch + c +
+                          j * kBlockX;
+        mx_out[p] = mx[i][j];
+        mn_out[p] = mn[i][j];
+      }
+  }
+
+  __device__ __forceinline__ void finish(const Acc&, int64_t, int64_t) const {
+  }
+};
+
+// The tile (f.ty0 + blockIdx.y, f.tx0 + blockIdx.x) of the (., W) array Z;
+// the host guarantees its window lies on the array (and, for a shard block,
+// inside the global raster) and kHalo >= Rmax + tile_shift(f.col0).
+template <int kHalo, class Out>
 static __global__ void __launch_bounds__(kBlockX * kBlockY, 2)
-counts_tile_kernel(const __grid_constant__ CUtensorMap map, int tma,
+ladder_tile_kernel(const __grid_constant__ CUtensorMap map, int tma,
                    const float* __restrict__ Z, int64_t W,
                    const int* __restrict__ ladder,
                    const float* __restrict__ scales, int K, int Rmax,
-                   int ty0, int tx0, float T, uint8_t* __restrict__ num_pos,
-                   uint8_t* __restrict__ num_neg) {
+                   TileFrame f, Out out) {
   constexpr int kPitch = kTileW + 2 * kHalo;
   extern __shared__ unsigned char smem[];
   float* win = reinterpret_cast<float*>(
@@ -140,8 +240,13 @@ counts_tile_kernel(const __grid_constant__ CUtensorMap map, int tma,
   const int rows = kTileH + 2 * Rmax;
   TileStep* tab = reinterpret_cast<TileStep*>(win + rows * kPitch);
   uint64_t* bar = reinterpret_cast<uint64_t*>(tab + 8 * K);
-  const int64_t r0 = (int64_t)(ty0 + (int)blockIdx.y) * kTileH;
-  const int64_t c0 = (int64_t)(tx0 + (int)blockIdx.x) * kTileW;
+  // the tile's first pixel in the grid, and in the array
+  const int64_t r0 = (int64_t)(f.ty0 + (int)blockIdx.y) * kTileH;
+  const int64_t c0 = (int64_t)(f.tx0 + (int)blockIdx.x) * kTileW;
+  const int64_t ar0 = f.row0 + r0;
+  const int64_t ac0 = f.col0 + c0;
+  // the core's first column in the window
+  const int left = kHalo + tile_shift(f.col0);
   const int tid = threadIdx.y * kBlockX + threadIdx.x;
 
   if (tma) {
@@ -149,16 +254,16 @@ counts_tile_kernel(const __grid_constant__ CUtensorMap map, int tma,
       asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
                    ::"r"(smem_addr(bar)) : "memory");
       asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-      tma_load_window(win, &map, (int)(c0 - kHalo), (int)(r0 - Rmax), bar,
+      tma_load_window(win, &map, (int)(ac0 - left), (int)(ar0 - Rmax), bar,
                       rows * kPitch * 4);
     }
   } else {
-    const float* src = Z + (r0 - Rmax) * W + (c0 - Rmax);
+    const float* src = Z + (ar0 - Rmax) * W + (ac0 - Rmax);
     const int cols = kTileW + 2 * Rmax;
     for (int r = threadIdx.y; r < rows; r += kBlockY)
       for (int c = threadIdx.x; c < cols; c += kBlockX)
         asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
-                     ::"r"(smem_addr(win + r * kPitch + kHalo - Rmax + c)),
+                     ::"r"(smem_addr(win + r * kPitch + left - Rmax + c)),
                      "l"(src + r * W + c) : "memory");
     asm volatile("cp.async.wait_all;" ::: "memory");
   }
@@ -172,16 +277,14 @@ counts_tile_kernel(const __grid_constant__ CUtensorMap map, int tma,
   if (tma) mbarrier_wait(bar, 0);
 
   // the thread's first pixel in the window; its others are immediates away
-  const float* base =
-      win + (Rmax + threadIdx.y) * kPitch + kHalo + threadIdx.x;
+  const float* base = win + (Rmax + threadIdx.y) * kPitch + left + threadIdx.x;
   float core[kTileRows][kTileCols];
 #pragma unroll
   for (int i = 0; i < kTileRows; ++i)
 #pragma unroll
     for (int j = 0; j < kTileCols; ++j)
       core[i][j] = base[i * kBlockY * kPitch + j * kBlockX];
-  int n_pos[kTileRows][kTileCols] = {};
-  int n_neg[kTileRows][kTileCols] = {};
+  typename Out::Acc acc = {};
 
 #pragma unroll 1
   for (int d = 0; d < 8; ++d) {
@@ -209,25 +312,11 @@ counts_tile_kernel(const __grid_constant__ CUtensorMap map, int tma,
           mn[i][j] = fminf(mn[i][j], ratio);
         }
     }
-#pragma unroll
-    for (int i = 0; i < kTileRows; ++i)
-#pragma unroll
-      for (int j = 0; j < kTileCols; ++j) {
-        bool gt, lt;
-        classify(mx[i][j], mn[i][j], T, gt, lt);
-        n_pos[i][j] += gt ? 1 : 0;
-        n_neg[i][j] += lt ? 1 : 0;
-      }
+    // the thread's first pixel in the grid, computed where it is used
+    // (held across the loop it costs the counts body 2 registers)
+    out.direction(acc, d, mx, mn, r0 + threadIdx.y, c0 + threadIdx.x);
   }
-#pragma unroll
-  for (int i = 0; i < kTileRows; ++i)
-#pragma unroll
-    for (int j = 0; j < kTileCols; ++j) {
-      const int64_t p = (r0 + threadIdx.y + i * kBlockY) * W + c0 +
-                        threadIdx.x + j * kBlockX;
-      num_pos[p] = (uint8_t)n_pos[i][j];
-      num_neg[p] = (uint8_t)n_neg[i][j];
-    }
+  out.finish(acc, r0 + threadIdx.y, c0 + threadIdx.x);
 }
 
 // cuTensorMapEncodeTiled, from the driver the runtime has loaded.
@@ -256,7 +345,7 @@ static EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The tensor map of the (H, W) float raster Z with a box of one window.
+// The tensor map of the (H, W) float array Z with a box of one window.
 static int window_map(CUtensorMap* map, const float* Z, long long H,
                       long long W, int box_w, int box_h) {
   const EncodeTiled encode = encode_tiled();
@@ -272,13 +361,12 @@ static int window_map(CUtensorMap* map, const float* Z, long long H,
   return res == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-template <int kHalo>
-static int launch_tiles(const float* Z, long long H, long long W,
-                        const int* ladder, const float* scales, int K,
-                        int Rmax, int ty0, int ty1, int tx0, int tx1, int tma,
-                        float T, uint8_t* num_pos, uint8_t* num_neg,
-                        cudaStream_t stream) {
-  if (Rmax > kHalo) return (int)cudaErrorInvalidValue;
+template <int kHalo, class Out>
+static int launch_tile_bucket(const float* Z, long long H, long long W,
+                              const int* ladder, const float* scales, int K,
+                              int Rmax, TileFrame f, int ty1, int tx1,
+                              int tma, Out out, cudaStream_t stream) {
+  if (Rmax + tile_shift(f.col0) > kHalo) return (int)cudaErrorInvalidValue;
   const long long bytes = tile_smem_bytes(kHalo, Rmax, K);
   CUtensorMap map;
   memset(&map, 0, sizeof(map));
@@ -290,28 +378,31 @@ static int launch_tiles(const float* Z, long long H, long long W,
   // above 48 KB a kernel must opt in; a launch asking for more than the
   // attribute allows is refused, and cudaGetLastError reports it
   const cudaError_t attr = cudaFuncSetAttribute(
-      counts_tile_kernel<kHalo>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+      ladder_tile_kernel<kHalo, Out>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (attr != cudaSuccess) return (int)attr;
-  counts_tile_kernel<kHalo>
-      <<<dim3(tx1 - tx0, ty1 - ty0), dim3(kBlockX, kBlockY), bytes,
-         stream>>>(map, tma, Z, (int64_t)W, ladder, scales, K, Rmax, ty0,
-                   tx0, T, num_pos, num_neg);
+  ladder_tile_kernel<kHalo, Out>
+      <<<dim3(tx1 - f.tx0, ty1 - f.ty0), dim3(kBlockX, kBlockY), bytes,
+         stream>>>(map, tma, Z, (int64_t)W, ladder, scales, K, Rmax, f, out);
   return (int)cudaGetLastError();
 }
 
-// Launch the tile kernel over tiles [ty0, ty1) x [tx0, tx1) in the halo
-// bucket ``halo`` (0, or an empty rectangle: no tile).
-static int launch_counts_tiles(const float* Z, long long H, long long W,
-                               const int* ladder, const float* scales, int K,
-                               int Rmax, int halo, int ty0, int ty1, int tx0,
-                               int tx1, int tma, float T, uint8_t* num_pos,
-                               uint8_t* num_neg, cudaStream_t stream) {
+// Launch the tile kernel with the epilogue ``out`` over tiles [ty0, ty1) x
+// [tx0, tx1) of the grid at (row0, col0) of the (H, W) array Z, in the halo
+// bucket ``halo`` (0, or an empty rectangle: no tile), loaded by TMA
+// (``tma`` 1) or cp.async (0).
+template <class Out>
+static int launch_tiles(const float* Z, long long H, long long W,
+                        const int* ladder, const float* scales, int K,
+                        int Rmax, int halo, int ty0, int ty1, int tx0,
+                        int tx1, int tma, int row0, int col0, Out out,
+                        cudaStream_t stream) {
   if (halo == 0 || ty1 <= ty0 || tx1 <= tx0) return 0;
-#define NEILPY_TILES(h)                                                     \
-  case h:                                                                   \
-    return launch_tiles<h>(Z, H, W, ladder, scales, K, Rmax, ty0, ty1, tx0, \
-                           tx1, tma, T, num_pos, num_neg, stream);
+  const TileFrame f{ty0, tx0, row0, col0};
+#define NEILPY_TILES(h)                                                    \
+  case h:                                                                  \
+    return launch_tile_bucket<h>(Z, H, W, ladder, scales, K, Rmax, f, ty1, \
+                                 tx1, tma, out, stream);
   switch (halo) {
     NEILPY_TILES(16)
     NEILPY_TILES(32)

@@ -74,9 +74,10 @@ int launch(const float* Z, long long H, long long W, const int* ladder,
            const float* scales, int K, int Rmax, unsigned allow, int halo,
            int ty0, int ty1, int tx0, int tx1, int tma, float T,
            uint8_t* num_pos, uint8_t* num_neg, cudaStream_t stream) {
-  const int err = launch_counts_tiles(Z, H, W, ladder, scales, K, Rmax, halo,
-                                      ty0, ty1, tx0, tx1, tma, T, num_pos,
-                                      num_neg, stream);
+  const int err =
+      launch_tiles(Z, H, W, ladder, scales, K, Rmax, halo, ty0, ty1, tx0, tx1,
+                   tma, 0, 0, CountsOut{T, num_pos, num_neg, (int64_t)W},
+                   stream);
   if (err != 0) return err;
   const UnitHole hole = unit_hole(halo, ty0, ty1, tx0, tx1);
   const unsigned blocks = unit_blocks(H, W, hole);
@@ -115,10 +116,10 @@ extern "C" int openness_counts_launch(const float* Z, long long H,
                                s);
 }
 
-// C entry: the dynamic shared memory, in bytes, that one tile CTA of K1 or
-// K5/counts is launched with in halo bucket ``halo`` at ladder reach
-// ``Rmax`` with ``K`` entries (ladder_tile.cuh:tile_smem_bytes, the value
-// launch_tiles passes).
-extern "C" long long counts_tile_smem_bytes(int halo, int Rmax, int K) {
+// C entry: the dynamic shared memory, in bytes, that one tile CTA of any
+// kernel (K1, K3, K4, K5/counts) is launched with in halo bucket ``halo``
+// at ladder reach ``Rmax`` with ``K`` entries
+// (ladder_tile.cuh:tile_smem_bytes, the value launch_tile_bucket passes).
+extern "C" long long ladder_tile_smem_bytes(int halo, int Rmax, int K) {
   return tile_smem_bytes(halo, Rmax, K);
 }

@@ -36,10 +36,23 @@
 // What bounds it on this card: K1's ladder, instruction-issue bound
 // (openness_counts.cu), at about R loads and 4 flops per step; the
 // epilogue's 64-bit global test runs once per direction, not per step.
-// The simple design stays: one thread per output pixel in 32x8 blocks, a
-// row stride of the haloed width and 64-bit indexing.
+//
+// The all-safe interior of the core runs K1's tiled body
+// (ladder_tile.cuh) on the haloed block: tiles of 32x64 core pixels on a
+// grid that starts at array pixel (R, R), each with its Rmax halo in
+// shared memory, and outputs at the core's pitch.  A tile takes it only
+// where its whole window lies on the block AND, shifted by the block's
+// origin, inside the global raster (ops/cuda_scan.py:tile_route with the
+// block's geometry), so no step reads the halo's NaN beyond the raster and
+// no last step needs the global epilogue.  The window starts R % 16
+// columns further left than on a whole raster (ladder_tile.cuh:tile_shift),
+// so the TMA box stays 64-B aligned in the block.  The per-thread kernel
+// below runs every other 32x8 block of the core, enumerated by a 1-D grid
+// over the core's blocks that leaves out the tiles' rectangle
+// (ladder_tile.cuh:unit_at): one thread per output pixel, a row stride of
+// the haloed width and 64-bit indexing.
 
-#include "ladder.cuh"
+#include "ladder_tile.cuh"
 
 namespace {
 
@@ -50,18 +63,21 @@ __global__ void __launch_bounds__(kBlockX * kBlockY)
 openness_counts_block_kernel(const float* __restrict__ Z, int64_t Hh,
                              int64_t Wh, const int* __restrict__ ladder,
                              const float* __restrict__ scales, int K,
-                             int Rmax, unsigned allow,
-                             int R, int64_t org_r, int64_t org_c, int64_t GH,
-                             int64_t GW, float T,
+                             int Rmax, unsigned allow, int hy0, int hy1,
+                             int hx0, int hx1, int R, int64_t org_r,
+                             int64_t org_c, int64_t GH, int64_t GW, float T,
                              uint8_t* __restrict__ num_pos,
                              uint8_t* __restrict__ num_neg) {
   const int64_t bh = Hh - 2 * (int64_t)R;
   const int64_t bw = Wh - 2 * (int64_t)R;
-  // the array's pixel (0, 0) lies at (org_r - R, org_c - R) of the raster
-  const DynamicRoute route{safe_directions_global(
-      allow, Rmax, Hh, Wh, R, R, org_r - R, org_c - R, GH, GW)};
-  const int64_t c = (int64_t)blockIdx.x * kBlockX + threadIdx.x;
-  const int64_t r = (int64_t)blockIdx.y * kBlockY + threadIdx.y;
+  // the unit's first pixel in the core; the core's pixel (0, 0) is the
+  // array's (R, R), and the array's pixel (0, 0) lies at (org_r - R,
+  // org_c - R) of the raster
+  const UnitPos u = unit_at((bw + kBlockX - 1) / kBlockX, hy0, hy1, hx0, hx1);
+  const DynamicRoute route{safe_directions_global_at(
+      allow, Rmax, Hh, Wh, R + u.r0, R + u.c0, org_r - R, org_c - R, GH, GW)};
+  const int64_t c = u.c0 + threadIdx.x;
+  const int64_t r = u.r0 + threadIdx.y;
   if (r >= bh || c >= bw) return;
   const Pixel px = make_pixel(Z, Hh, Wh, r + R, c + R);
   const GlobalPos g{org_r + r, org_c + c, GH, GW};
@@ -83,14 +99,25 @@ openness_counts_block_kernel(const float* __restrict__ Z, int64_t Hh,
 
 template <bool kDense>
 int launch(const float* Z, long long Hh, long long Wh, const int* ladder,
-           const float* scales, int K, int Rmax, unsigned allow, int R,
+           const float* scales, int K, int Rmax, unsigned allow, int halo,
+           int ty0, int ty1, int tx0, int tx1, int tma, int R,
            long long org_r, long long org_c, long long GH, long long GW,
            float T, uint8_t* num_pos, uint8_t* num_neg, cudaStream_t stream) {
+  const long long bh = Hh - 2LL * R;
+  const long long bw = Wh - 2LL * R;
+  const int err =
+      launch_tiles(Z, Hh, Wh, ladder, scales, K, Rmax, halo, ty0, ty1, tx0,
+                   tx1, tma, R, R, CountsOut{T, num_pos, num_neg, (int64_t)bw},
+                   stream);
+  if (err != 0) return err;
+  const UnitHole hole = unit_hole(halo, ty0, ty1, tx0, tx1);
+  const unsigned blocks = unit_blocks(bh, bw, hole);
+  if (blocks == 0) return 0;
   openness_counts_block_kernel<kDense>
-      <<<grid_for(Hh - 2LL * R, Wh - 2LL * R), dim3(kBlockX, kBlockY), 0,
-         stream>>>(Z, (int64_t)Hh, (int64_t)Wh, ladder, scales, K, Rmax, allow,
-                   R, (int64_t)org_r, (int64_t)org_c, (int64_t)GH,
-                   (int64_t)GW, T, num_pos, num_neg);
+      <<<blocks, dim3(kBlockX, kBlockY), 0, stream>>>(
+          Z, (int64_t)Hh, (int64_t)Wh, ladder, scales, K, Rmax, allow,
+          hole.y0, hole.y1, hole.x0, hole.x1, R, (int64_t)org_r,
+          (int64_t)org_c, (int64_t)GH, (int64_t)GW, T, num_pos, num_neg);
   return (int)cudaGetLastError();
 }
 
@@ -100,18 +127,24 @@ int launch(const float* Z, long long Hh, long long Wh, const int* ladder,
 // the (Hh, Wh) haloed block with halo R; (org_r, org_c) the global origin
 // of its core and (GH, GW) the global shape; num_pos and num_neg hold
 // (Hh - 2R) * (Wh - 2R) bytes each; ``dense`` says the ladder is 1..K;
-// ``allow`` as in openness_counts_launch.
+// ``allow`` as in openness_counts_launch; ``halo``, [ty0, ty1) x [tx0,
+// tx1) and ``tma`` the tile arguments as there, the tiles counted on the
+// core's grid (cuda_scan.tile_route with the block's geometry).
 // All pointers are device pointers; ``stream`` is a cudaStream_t.
 // Launches on that stream, does not synchronise, and returns
-// cudaGetLastError().
+// cudaGetLastError() (or the tensor map's or the shared-memory
+// attribute's error).
 extern "C" int openness_counts_block_launch(
     const float* Z, long long Hh, long long Wh, const int* ladder,
     const float* scales, int K, int Rmax, int dense, unsigned allow,
-    int R, long long org_r, long long org_c, long long GH, long long GW,
-    float T, unsigned char* num_pos, unsigned char* num_neg, void* stream) {
+    int halo, int ty0, int ty1, int tx0, int tx1, int tma, int R,
+    long long org_r, long long org_c, long long GH, long long GW, float T,
+    unsigned char* num_pos, unsigned char* num_neg, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  return dense ? launch<true>(Z, Hh, Wh, ladder, scales, K, Rmax, allow, R,
-                              org_r, org_c, GH, GW, T, num_pos, num_neg, s)
-               : launch<false>(Z, Hh, Wh, ladder, scales, K, Rmax, allow, R,
-                               org_r, org_c, GH, GW, T, num_pos, num_neg, s);
+  return dense ? launch<true>(Z, Hh, Wh, ladder, scales, K, Rmax, allow, halo,
+                              ty0, ty1, tx0, tx1, tma, R, org_r, org_c, GH,
+                              GW, T, num_pos, num_neg, s)
+               : launch<false>(Z, Hh, Wh, ladder, scales, K, Rmax, allow,
+                               halo, ty0, ty1, tx0, tx1, tma, R, org_r, org_c,
+                               GH, GW, T, num_pos, num_neg, s);
 }

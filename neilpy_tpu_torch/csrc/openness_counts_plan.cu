@@ -76,9 +76,10 @@ int launch(const float* Z, long long H, long long W, const int* ladder,
            long long rhi, unsigned rmasks, long long clo, long long chi,
            unsigned cmasks, float T, uint8_t* num_pos, uint8_t* num_neg,
            cudaStream_t stream) {
-  const int err = launch_counts_tiles(Z, H, W, ladder, scales, K, Rmax, halo,
-                                      ty0, ty1, tx0, tx1, tma, T, num_pos,
-                                      num_neg, stream);
+  const int err =
+      launch_tiles(Z, H, W, ladder, scales, K, Rmax, halo, ty0, ty1, tx0, tx1,
+                   tma, 0, 0, CountsOut{T, num_pos, num_neg, (int64_t)W},
+                   stream);
   if (err != 0) return err;
   const UnitHole hole = unit_hole(halo, ty0, ty1, tx0, tx1);
   const unsigned blocks = unit_blocks(H, W, hole);

@@ -44,15 +44,16 @@ plain versions run the same choice on any device when given ``route``,
 with ``torch.fmax`` / ``torch.fmin`` on the maskless pairs and +inf read
 off the array there, so a pair wrongly marked safe shows on the CPU.
 
-K1 and K5/counts run their all-safe interior on a third body, the tile
-kernel of ``csrc/ladder_tile.cuh``: a thread block owns ``TILE`` output
-pixels, copies them with their Rmax halo into shared memory once (TMA,
-or cp.async where TMA cannot address the raster) and runs the maskless
-step from there, 8 pixels per thread.  :func:`tile_route` is the host's
-model of which tiles take it (a rectangle of whole tiles, maskless in
-every direction over its whole window, and a window that fits in shared
-memory); every other 32x8 block runs the per-thread bodies as before.
-The outputs do not change.
+K1, K3, K4 and K5/counts run their all-safe interior on a third body, the
+tile kernel of ``csrc/ladder_tile.cuh``: a thread block owns ``TILE``
+output pixels, copies them with their Rmax halo into shared memory once
+(TMA, or cp.async where TMA cannot address the array) and runs the
+maskless step from there, 8 pixels per thread, writing counts (K1, K4,
+K5) or planes (K3).  :func:`tile_route` is the host's model of which
+tiles take it (a rectangle of whole tiles, maskless in every direction
+over its whole window, for a shard block also inside the global raster,
+and a window that fits in shared memory); every other 32x8 block runs the
+per-thread bodies as before.  The outputs do not change.
 
 A shard block (K4, and K3 given ``origin``) separates two limits: the
 ladder ends at the edge of the block in memory, and the epilogue tests
@@ -167,9 +168,9 @@ BLOCK = (8, 32)
 # as the kernels did before the maskless ladder (chip_smoke.py's timing
 # baseline); the outputs do not change.
 _ALLOW_MASKLESS = 0xFF
-# K1's and K5/counts' tile path (csrc/ladder_tile.cuh): off sends every
-# block to the per-thread bodies, the kernels as they were before it
-# (chip_smoke.py's same-call baseline); the outputs do not change
+# the tile path of K1, K3, K4 and K5/counts (csrc/ladder_tile.cuh): off
+# sends every block to the per-thread bodies, the kernels as they were
+# before it (chip_smoke.py's same-call baseline); the outputs do not change
 _ALLOW_TILE = True
 # (rows, cols) of the tile kernel's core: 4 x 2 thread blocks
 TILE = (32, 64)
@@ -339,10 +340,10 @@ def route_table(Z, lookup_pixels, fast=False, how_fast=20, specialize=False,
 
 
 class TileRoute(NamedTuple):
-    """Where K1 / K5/counts run the tile body (:func:`tile_route`):
-    ``halo`` the bucket (0: no tile), ``rows`` = (ty0, ty1) and ``cols`` =
-    (tx0, tx1) the rectangle of tiles of ``TILE`` pixels, ``smem_bytes``
-    the dynamic shared memory of one tile CTA."""
+    """Where a kernel runs the tile body (:func:`tile_route`): ``halo`` the
+    bucket (0: no tile), ``rows`` = (ty0, ty1) and ``cols`` = (tx0, tx1)
+    the rectangle of tiles of ``TILE`` pixels on the kernel's grid,
+    ``smem_bytes`` the dynamic shared memory of one tile CTA."""
 
     halo: int
     rows: tuple
@@ -355,7 +356,8 @@ class TileRoute(NamedTuple):
                 * (self.cols[1] - self.cols[0]))
 
     def pixels(self, H, W):
-        """(H, W) numpy bool: the pixels the tile kernel computes."""
+        """(H, W) numpy bool over the grid (K4: the core): the pixels the
+        tile kernel computes."""
         out = np.zeros((int(H), int(W)), dtype=bool)
         th, tw = TILE
         out[self.rows[0] * th:self.rows[1] * th,
@@ -373,35 +375,61 @@ def _tile_smem_bytes(halo, Rmax, K):
     return 128 + 4 * (TILE[0] + 2 * Rmax) * (TILE[1] + 2 * halo) + 64 * K + 8
 
 
+def _tile_span(n, Rmax, g0, org, gn, extent, size):
+    """[lo, hi) of the tiles of ``size`` pixels along one axis whose whole
+    window, the tile's pixels +- Rmax, lies on the array of ``n`` and, for
+    a grid pixel at array ``g0 + i`` and global ``org + g0 + i``, inside
+    the raster of ``gn``, and which lie in the grid's ``extent``."""
+    lo = max(Rmax - g0, Rmax - g0 - org, 0)
+    hi = min(n - g0 - Rmax, gn - org - g0 - Rmax, extent)
+    return -(-lo // size), hi // size
+
+
 @functools.lru_cache(maxsize=64)
-def tile_route(H, W, Rmax, specialize, K=None):
-    """The tiles of TILE pixels that take K1's (``specialize`` False) or
-    K5/counts' (True) tile body on an (H, W) raster at ladder reach
-    ``Rmax`` with ``K`` ladder entries (default ``Rmax``, the dense
-    ladder): a :class:`TileRoute`, the numpy model of the rectangle the
-    kernels are launched with.
+def tile_route(H, W, Rmax, specialize, K=None, grid0=(0, 0), core=None,
+               origin=None, global_shape=None):
+    """The tiles of TILE pixels that take the tile body on an (H, W) array
+    at ladder reach ``Rmax`` with ``K`` ladder entries (default ``Rmax``,
+    the dense ladder): a :class:`TileRoute`, the numpy model of the
+    rectangle the kernels are launched with.
 
     A tile takes it only where every direction is maskless over its whole
-    window, and the window fits in shared memory: for K1 the core shifted
-    by d*1 .. d*Rmax lies on the raster in all 8 directions
-    (``window_on``, what ``dynamic_safe`` tests per 32x8 block); for K5 the
-    tile lies wholly in the plan's interior region (``region_plan``),
-    whose blocks are safe in every direction.  The halo is the smallest
-    bucket >= Rmax; a reach above the largest, or a window above
-    ``SMEM_CAP`` bytes (exact lookup 95 and up), gets no tile."""
+    window, and the window fits in shared memory.  ``specialize`` True
+    (K5/counts): the tile lies wholly in the plan's interior region
+    (``region_plan``, whole rasters only), whose blocks are safe in every
+    direction.  False (K1, K3, K4): the core shifted by d*1 .. d*Rmax lies
+    on the array in all 8 directions (``window_on``, what
+    ``dynamic_safe`` tests per 32x8 block); for a shard block, with the
+    geometry ``dynamic_safe`` takes, also inside the raster.  The grid of
+    tiles starts at array pixel ``grid0`` and spans ``core`` pixels
+    (default: the rest of the array): K4's is its core, ``grid0`` (R, R)
+    and ``core`` (bh, bw); ``origin`` is the global (row, col) of the
+    array's pixel (0, 0) and ``global_shape`` the raster's (default: the
+    array's), as K3's origin entry takes them.  The halo is the smallest
+    bucket >= Rmax plus the window's column shift ``grid0[1] % 16``
+    (``ladder_tile.cuh:tile_shift``, 0 on a whole raster); a reach above
+    the largest, or a window above ``SMEM_CAP`` bytes (exact lookup 95 and
+    up), gets no tile."""
     H, W, Rmax = int(H), int(W), int(Rmax)
     K = Rmax if K is None else int(K)
-    halo = next((h for h in _TILE_HALOS if h >= Rmax), 0)
+    g0r, g0c = map(int, grid0)
+    halo = next((h for h in _TILE_HALOS if h >= Rmax + g0c % 16), 0)
     if not halo or _tile_smem_bytes(halo, Rmax, K) > SMEM_CAP:
         return _NO_TILE
     th, tw = TILE
     if specialize:
+        if (g0r, g0c) != (0, 0) or core is not None or origin is not None:
+            raise ValueError("the static region plan serves whole rasters "
+                             "only")
         rlo, rhi, _, clo, chi, _ = region_plan(H, W, Rmax)
         rows = (-(-rlo // th), rhi // th)
         cols = (-(-clo // tw), chi // tw)
     else:
-        rows = (-(-Rmax // th), (H - Rmax) // th)
-        cols = (-(-Rmax // tw), (W - Rmax) // tw)
+        gh, gw = (H - g0r, W - g0c) if core is None else map(int, core)
+        org_r, org_c = (0, 0) if origin is None else map(int, origin)
+        GH, GW = (H, W) if global_shape is None else map(int, global_shape)
+        rows = _tile_span(H, Rmax, g0r, org_r, GH, gh, th)
+        cols = _tile_span(W, Rmax, g0c, org_c, GW, gw, tw)
     if rows[1] <= rows[0] or cols[1] <= cols[0]:
         return _NO_TILE
     return TileRoute(halo, rows, cols, _tile_smem_bytes(halo, Rmax, K))
@@ -409,7 +437,7 @@ def tile_route(H, W, Rmax, specialize, K=None):
 
 def _tile_load(Z):
     """The tile kernel's load path: TMA (1) where TMA can address the
-    raster, a row pitch that is a multiple of 16 bytes (W % 4 == 0) and a
+    array, a row pitch that is a multiple of 16 bytes (W % 4 == 0) and a
     16-byte aligned base; cp.async (0) otherwise."""
     return int(Z.shape[1] % 4 == 0 and Z.data_ptr() % 16 == 0)
 
@@ -665,11 +693,12 @@ def _check_cuda(Z, name):
                          "(524280)")
 
 
-def _tile_args(Z, Rmax, K, plan):
-    """The tile arguments of K1's and K5/counts' C entries: (halo, ty0,
-    ty1, tx0, tx1, tma), all 0 when the tile path is off (``_ALLOW_TILE``),
-    the route mask withholds a direction, or no tile fits."""
-    t = (tile_route(*Z.shape, Rmax, plan, K)
+def _tile_args(Z, Rmax, K, plan, **geometry):
+    """The tile arguments of the C entries: (halo, ty0, ty1, tx0, tx1, tma)
+    for array ``Z`` and a shard block's ``geometry`` (:func:`tile_route`),
+    all 0 when the tile path is off (``_ALLOW_TILE``), the route mask
+    withholds a direction, or no tile fits."""
+    t = (tile_route(*Z.shape, Rmax, plan, K, **geometry)
          if _ALLOW_TILE and _ALLOW_MASKLESS == 0xFF else _NO_TILE)
     if not t.n_tiles:
         return (0,) * 6
@@ -677,10 +706,11 @@ def _tile_args(Z, Rmax, K, plan):
 
 
 def _launch(Z, entry, cellsize, lookup_pixels, fast, how_fast, *args,
-            plan=False, tiles=False):
+            plan=False, tiles=None):
     """Launch C entry ``entry`` for raster ``Z`` with its ladder tables,
     the dense-ladder flag and the route mask ``_ALLOW_MASKLESS``, then the
-    tile arguments if ``tiles`` (:func:`_tile_args`), then K5's region plan
+    tile arguments unless ``tiles`` is None (:func:`_tile_args` with the
+    geometry ``tiles``, ``{}`` for a whole raster), then K5's region plan
     if ``plan``, then ``args``, on Z's device and current stream; raise on
     a CUDA error.  Does not synchronise."""
     lib = _build.load()
@@ -694,31 +724,37 @@ def _launch(Z, entry, cellsize, lookup_pixels, fast, how_fast, *args,
         err = getattr(lib, entry)(
             Z.data_ptr(), H, W, ladder_t.data_ptr(), scales.data_ptr(),
             len(ladder), Rmax, int(dense), _ALLOW_MASKLESS,
-            *(_tile_args(Z, Rmax, len(ladder), plan) if tiles else ()),
+            *(() if tiles is None
+              else _tile_args(Z, Rmax, len(ladder), plan, **tiles)),
             *(region_plan(H, W, Rmax) if plan else ()), *args, stream)
     if err != 0:
         raise RuntimeError(f"{entry} failed: CUDA error {err}")
 
 
+def _outputs(out, shape, dtype, device, name):
+    """A kernel's pair of outputs: ``out`` checked (two contiguous tensors
+    of ``dtype`` and ``shape`` on ``device``), or two new ones."""
+    if out is None:
+        return tuple(torch.empty(shape, dtype=dtype, device=device)
+                     for _ in range(2))
+    out = tuple(out)
+    if len(out) != 2 or any(
+            t.dtype != dtype or tuple(t.shape) != tuple(shape)
+            or t.device != device or not t.is_contiguous() for t in out):
+        raise ValueError(f"{name}: out must be two contiguous {dtype} "
+                         f"tensors of shape {tuple(shape)} on {device}")
+    return out
+
+
 def _counts_cuda(Z, name, cellsize, lookup_pixels, threshold_angle, fast,
                  how_fast, plan, out):
     _check_cuda(Z, name)
-    if out is None:
-        num_pos = torch.empty(Z.shape, dtype=torch.uint8, device=Z.device)
-        num_neg = torch.empty_like(num_pos)
-    else:
-        num_pos, num_neg = out
-        for t in out:
-            if (t.dtype != torch.uint8 or t.shape != Z.shape
-                    or t.device != Z.device or not t.is_contiguous()):
-                raise ValueError(f"{name}: out must be two contiguous uint8 "
-                                 f"tensors of shape {tuple(Z.shape)} on "
-                                 f"{Z.device}")
+    num_pos, num_neg = _outputs(out, Z.shape, torch.uint8, Z.device, name)
     if Z.numel() == 0:
         return num_pos, num_neg, False
     _launch(Z, f"{name[:-len('_cuda')]}_launch", cellsize, lookup_pixels,
             fast, how_fast, _threshold_tangent(threshold_angle),
-            num_pos.data_ptr(), num_neg.data_ptr(), plan=plan, tiles=True)
+            num_pos.data_ptr(), num_neg.data_ptr(), plan=plan, tiles={})
     return num_pos, num_neg, True
 
 
@@ -760,25 +796,41 @@ def openness_counts_plan_cuda(Z, cellsize=1.0, lookup_pixels=1,
 openness_counts_plan_cuda.launches = 0
 
 
+def _block_tiles(block_haloed, origin, global_shape, R):
+    """K4's tile geometry (:func:`tile_route`) for a block with an R-wide
+    halo whose core lies at global ``origin``: the tiles lie on the core's
+    grid, at (R, R) of the block, whose pixel (0, 0) lies at ``origin - R``
+    of the raster."""
+    R = int(R)
+    return dict(grid0=(R, R), core=(block_haloed.shape[0] - 2 * R,
+                                    block_haloed.shape[1] - 2 * R),
+                origin=(int(origin[0]) - R, int(origin[1]) - R),
+                global_shape=tuple(map(int, global_shape)))
+
+
 def openness_counts_block_cuda(block_haloed, origin, global_shape,
                                lookup_pixels, cellsize=1.0,
-                               threshold_angle=1.0, fast=False, how_fast=20):
-    """K4 (``csrc/openness_counts_block.cu``, dynamic route): the
-    core-shaped counts of :func:`openness_counts_block_torch`.  Same input
-    rules, stream and counter (``openness_counts_block_cuda.launches``) as
+                               threshold_angle=1.0, fast=False, how_fast=20,
+                               out=None):
+    """K4 (``csrc/openness_counts_block.cu``, dynamic route, tile path
+    inside): the core-shaped counts of :func:`openness_counts_block_torch`.
+    ``out``: the (num_pos, num_neg) pair to write, contiguous uint8 tensors
+    of the core's shape on the block's device.  Same input rules, stream
+    and counter (``openness_counts_block_cuda.launches``) as
     :func:`openness_counts_cuda`."""
-    _check_cuda(block_haloed, "openness_counts_block_cuda")
+    name = "openness_counts_block_cuda"
+    _check_cuda(block_haloed, name)
     R, bh, bw = _block_core(block_haloed, lookup_pixels)
-    num_pos = torch.empty((bh, bw), dtype=torch.uint8,
-                          device=block_haloed.device)
-    num_neg = torch.empty_like(num_pos)
+    num_pos, num_neg = _outputs(out, (bh, bw), torch.uint8,
+                                block_haloed.device, name)
     if num_pos.numel() == 0:
         return num_pos, num_neg
+    org = (int(origin[0]), int(origin[1]))
+    gshape = (int(global_shape[0]), int(global_shape[1]))
     _launch(block_haloed, "openness_counts_block_launch", cellsize, R, fast,
-            how_fast, R, int(origin[0]), int(origin[1]),
-            int(global_shape[0]), int(global_shape[1]),
-            _threshold_tangent(threshold_angle), num_pos.data_ptr(),
-            num_neg.data_ptr())
+            how_fast, R, *org, *gshape, _threshold_tangent(threshold_angle),
+            num_pos.data_ptr(), num_neg.data_ptr(),
+            tiles=_block_tiles(block_haloed, org, gshape, R))
     openness_counts_block_cuda.launches += 1
     return num_pos, num_neg
 
@@ -787,26 +839,30 @@ openness_counts_block_cuda.launches = 0
 
 
 def directional_extrema_cuda(Z, cellsize=1.0, lookup_pixels=1, fast=False,
-                             how_fast=20, origin=None, global_shape=None):
+                             how_fast=20, origin=None, global_shape=None,
+                             out=None):
     """(mx, mn), each (8, H, W) float32, from K3
-    (``csrc/directional_extrema.cu``, dynamic route); given ``origin`` or
-    ``global_shape``, from its entry for a shard block.  Same input rules,
-    stream and counter (``directional_extrema_cuda.launches``, both
-    entries) as :func:`openness_counts_cuda`."""
-    _check_cuda(Z, "directional_extrema_cuda")
-    mx = torch.empty((8, *Z.shape), dtype=torch.float32, device=Z.device)
-    mn = torch.empty_like(mx)
+    (``csrc/directional_extrema.cu``, dynamic route, tile path inside);
+    given ``origin`` or ``global_shape``, from its entry for a shard block.
+    ``out``: the (mx, mn) pair to write, contiguous float32 tensors of
+    shape (8, H, W) on Z's device.  Same input rules, stream and counter
+    (``directional_extrema_cuda.launches``, both entries) as
+    :func:`openness_counts_cuda`."""
+    name = "directional_extrema_cuda"
+    _check_cuda(Z, name)
+    mx, mn = _outputs(out, (8, *Z.shape), torch.float32, Z.device, name)
     if Z.numel() == 0:
         return mx, mn
     if origin is None and global_shape is None:
         _launch(Z, "directional_extrema_launch", cellsize, lookup_pixels,
-                fast, how_fast, mx.data_ptr(), mn.data_ptr())
+                fast, how_fast, mx.data_ptr(), mn.data_ptr(), tiles={})
     else:
-        org = (0, 0) if origin is None else origin
-        gshape = Z.shape if global_shape is None else global_shape
+        org = (0, 0) if origin is None else (int(origin[0]), int(origin[1]))
+        gshape = tuple(map(int, Z.shape if global_shape is None
+                           else global_shape))
         _launch(Z, "directional_extrema_global_launch", cellsize,
-                lookup_pixels, fast, how_fast, int(org[0]), int(org[1]),
-                int(gshape[0]), int(gshape[1]), mx.data_ptr(), mn.data_ptr())
+                lookup_pixels, fast, how_fast, *org, *gshape, mx.data_ptr(),
+                mn.data_ptr(), tiles=dict(origin=org, global_shape=gshape))
     directional_extrema_cuda.launches += 1
     return mx, mn
 

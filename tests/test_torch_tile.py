@@ -1,6 +1,6 @@
-"""The tile path of K1 and K5/counts (``csrc/ladder_tile.cuh``) on the
-CPU: its host mirror ``cuda_scan.tile_route`` held against brute force in
-numpy.
+"""The tile path of K1, K5/counts, K3 and K4 (``csrc/ladder_tile.cuh``) on
+the CPU: its host mirror ``cuda_scan.tile_route`` held against brute force
+in numpy.
 
 - soundness: every read of every ladder step of every pixel of a tile CTA
   lies in the tile's shared-memory window and on the raster, on the
@@ -14,10 +14,19 @@ numpy.
 - shared memory stays within the card's 232,448 bytes, and a lookup
   beyond it gets no tile; at 8192^2, lookup 50, >= 95% of the pixels lie
   in tile CTAs;
-- the tile switches change neither the route table nor a CPU output.
+- the tile switches change neither the route table nor a CPU output;
+- shard blocks (K4 on its core's grid at (R, R), K3's origin entry on the
+  haloed block), the blocks of 1x1, 2x2 and 2x3 meshes over three rasters
+  at lookups 1, 12, 24 and 50 on both ladders: every read in the window,
+  on the block and inside the global raster; every tile all-safe under
+  ``dynamic_safe`` with the block's origin, and the rectangle the largest
+  such; a window on the block but off the raster takes no tile; the unit
+  grid covers the rest of the core's (K4) or the block's (K3) grid once;
+  >= 90% of a 4096^2 core (K4) and of a 4196^2 block (K3) in tiles at
+  lookup 50; the haloed blocks TMA can load.
 
-The kernels themselves run on the card only: the ``cuda`` test skips here
-and ``chip_smoke.py`` holds both kernels, tile path on and off, against
+The kernels themselves run on the card only: the ``cuda`` tests skip here
+and ``chip_smoke.py`` holds the four kernels, tile path on and off, against
 the plain version.
 """
 
@@ -218,6 +227,229 @@ def test_tile_load_rule():
     assert cs._tile_load(torch.zeros(64 * 900 + 1)[1:].view(64, 900)) == 0
 
 
+def _shard_geometries(shape, mesh, lookup):
+    """The haloed blocks ``dist/api.py`` makes of an (H, W) raster on a
+    ``mesh`` = (ny, nx) mesh at halo R = ``lookup``: per block its array
+    shape and the tile geometry of K4 (the core's grid at (R, R)) and of
+    K3's origin entry (the whole block), as the wrappers pass them."""
+    ny, nx = mesh
+    R = lookup
+    GH, GW = -(-shape[0] // ny) * ny, -(-shape[1] // nx) * nx
+    bh, bw = GH // ny, GW // nx
+    out = []
+    for y in range(ny):
+        for x in range(nx):
+            org = (y * bh - R, x * bw - R)
+            arr = (bh + 2 * R, bw + 2 * R)
+            out.append((arr, "K4", dict(grid0=(R, R), core=(bh, bw),
+                                        origin=org, global_shape=(GH, GW))))
+            out.append((arr, "K3", dict(origin=org, global_shape=(GH, GW))))
+    return out
+
+
+def _grid_geometry(arr, geom):
+    """(grid0, grid extent, origin, global shape) with the defaults
+    ``tile_route`` takes."""
+    g0 = geom.get("grid0", (0, 0))
+    core = geom.get("core") or (arr[0] - g0[0], arr[1] - g0[1])
+    return g0, core, geom["origin"], geom["global_shape"]
+
+
+SHARD_SHAPES = [(257, 389), (1000, 1537), (515, 771)]
+SHARD_MESHES = [(1, 1), (2, 2), (2, 3)]
+SHARD_LOOKUPS = (1, 12, 24, 50)
+
+
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("lookup", SHARD_LOOKUPS)
+@pytest.mark.parametrize("mesh", SHARD_MESHES)
+@pytest.mark.parametrize("shape", SHARD_SHAPES)
+def test_shard_tile_reads_stay_in_window_on_block_and_in_raster(
+        shape, mesh, lookup, fast):
+    """Brute force over every tile pixel, direction and ladder step of K4's
+    and K3's origin tiles, as for a whole raster: each read of grid pixel
+    (i, j) lies at block pixel grid0 + (i, j) + d*L, in the tile's window,
+    on the block and, at global block pixel + origin, inside the raster;
+    the whole window (what TMA's box rows and cp.async copy) too."""
+    ladder, Rmax, K = _reach(lookup, fast)
+    th, tw = cs.TILE
+    n_tiles = 0
+    for arr, kid, geom in _shard_geometries(shape, mesh, lookup):
+        t = cs.tile_route(*arr, Rmax, False, K, **geom)
+        if not t.n_tiles:
+            continue
+        n_tiles += t.n_tiles
+        (g0r, g0c), (gh, gw), (org_r, org_c), (GH, GW) = _grid_geometry(
+            arr, geom)
+        assert t.halo >= Rmax + g0c % 16
+        assert t.halo == min(h for h in cs._TILE_HALOS if h >= Rmax + g0c % 16)
+        rows = np.arange(t.rows[0] * th, t.rows[1] * th)
+        cols = np.arange(t.cols[0] * tw, t.cols[1] * tw)
+        # in the grid: every tile pixel is an output pixel of the kernel
+        assert rows.min() >= 0 and rows.max() < gh
+        assert cols.min() >= 0 and cols.max() < gw
+        r0 = g0r + rows // th * th  # each pixel's tile origin in the block
+        c0 = g0c + cols // tw * tw
+        for dr, dc in OFFSETS:
+            for L in ladder:
+                rr = g0r + rows + dr * L
+                cc = g0c + cols + dc * L
+                assert ((rr >= r0 - Rmax) & (rr < r0 + th + Rmax)).all(), kid
+                assert ((cc >= c0 - Rmax) & (cc < c0 + tw + Rmax)).all(), kid
+                assert ((rr >= 0) & (rr < arr[0])).all(), kid
+                assert ((cc >= 0) & (cc < arr[1])).all(), kid
+                assert ((rr + org_r >= 0) & (rr + org_r < GH)).all(), kid
+                assert ((cc + org_c >= 0) & (cc + org_c < GW)).all(), kid
+        for lo, hi, n, org, gn in ((r0.min() - Rmax, r0.max() + th + Rmax,
+                                    arr[0], org_r, GH),
+                                   (c0.min() - Rmax, c0.max() + tw + Rmax,
+                                    arr[1], org_c, GW)):
+            assert lo >= 0 and hi <= n, kid
+            assert lo + org >= 0 and hi + org <= gn, kid
+    if lookup <= 24 and min(shape) >= 500:
+        assert n_tiles > 0
+
+
+@pytest.mark.parametrize("mesh", SHARD_MESHES)
+@pytest.mark.parametrize("shape", SHARD_SHAPES)
+def test_shard_tiles_are_the_all_safe_rectangle(shape, mesh):
+    """Every tile's 32x8 blocks are maskless in all 8 directions under
+    ``dynamic_safe`` with the block's origin and the global shape, and the
+    rectangle holds every whole tile of the grid that is: the model is
+    sound and gives nothing away."""
+    th, tw = cs.TILE
+    uy, ux = th // cs.BLOCK[0], tw // cs.BLOCK[1]
+    for lookup in SHARD_LOOKUPS:
+        for fast in (False, True):
+            _, Rmax, K = _reach(lookup, fast)
+            for arr, kid, geom in _shard_geometries(shape, mesh, lookup):
+                g0, (gh, gw), org, gshape = _grid_geometry(arr, geom)
+                grid = (-(-gh // cs.BLOCK[0]), -(-gw // cs.BLOCK[1]))
+                safe = cs.dynamic_safe(arr, Rmax, grid, g0, org,
+                                       gshape).all(axis=0)
+                t = cs.tile_route(*arr, Rmax, False, K, **geom)
+                # the whole tiles of the grid whose blocks are all safe
+                ny, nx = gh // th, gw // tw
+                ok = safe[:ny * uy, :nx * ux].reshape(ny, uy, nx, ux)
+                ok = ok.all(axis=(1, 3))
+                want = np.zeros((ny, nx), dtype=bool)
+                want[t.rows[0]:t.rows[1], t.cols[0]:t.cols[1]] = True
+                if t.halo:
+                    assert np.array_equal(ok, want), (kid, lookup, fast)
+                else:
+                    assert not t.n_tiles
+
+
+def test_window_on_block_but_off_raster_takes_no_tile():
+    """K3's origin entry on block (0, 0) of a 2x2 mesh over 8192^2 at lookup
+    50: the tiles of rows 64-127 and of columns 64-127 have their windows on
+    the block, so the block alone would give them the tile body, but their
+    windows reach above or left of the raster, where the per-thread body
+    clamps the last step; the origin takes them out.  At the far edges the
+    block ends before the raster, so there the block decides."""
+    R, Rmax = 50, 50
+    arr = (4096 + 2 * R,) * 2
+    alone = cs.tile_route(*arr, Rmax, False)
+    t = cs.tile_route(*arr, Rmax, False, origin=(-R, -R),
+                      global_shape=(8192, 8192))
+    assert alone.rows == (2, 129) and alone.cols == (1, 64)
+    assert t.rows == (4, 129) and t.cols == (2, 64)
+    safe = cs.dynamic_safe(arr, Rmax, origin=(-R, -R),
+                           global_shape=(8192, 8192))
+    # each tile the origin took out holds a block that is not safe in
+    # every direction, in every tile column (rows) and tile row (columns)
+    for ty in (2, 3):
+        assert not safe[:, ty * 4:(ty + 1) * 4].all(axis=(0, 1)).any()
+    assert not safe[:, :, 1 * 2:2 * 2].all(axis=(0, 2)).any()
+    # K4 on the same block: its grid starts at (R, R), its tiles' windows
+    # start at core row 32 * ty - Rmax, on the raster from ty = 2
+    k4 = cs.tile_route(*arr, Rmax, False, grid0=(R, R), core=(4096, 4096),
+                       origin=(-R, -R), global_shape=(8192, 8192))
+    assert k4.rows == (2, 128) and k4.cols == (1, 64)
+
+
+@pytest.mark.parametrize("shape,mesh,lookup,kid", [
+    ((1000, 1537), (2, 2), 12, "K4"), ((1000, 1537), (2, 3), 50, "K3"),
+    ((515, 771), (2, 2), 24, "K4"), ((257, 389), (1, 1), 1, "K3"),
+    ((515, 771), (2, 3), 12, "K3"), ((257, 389), (2, 2), 50, "K4")])
+def test_unit_grid_covers_what_shard_tiles_leave(shape, mesh, lookup, kid):
+    """The per-thread kernels' 1-D grid runs over K4's core grid and K3's
+    block grid: every 32x8 block outside the tiles once, none inside."""
+    uy, ux = cs.TILE[0] // cs.BLOCK[0], cs.TILE[1] // cs.BLOCK[1]
+    for arr, k, geom in _shard_geometries(shape, mesh, lookup):
+        if k != kid:
+            continue
+        _, (gh, gw), _, _ = _grid_geometry(arr, geom)
+        nby, nbx = -(-gh // cs.BLOCK[0]), -(-gw // cs.BLOCK[1])
+        t = cs.tile_route(*arr, lookup, False, **geom)
+        hole = (t.rows[0] * uy, t.rows[1] * uy, t.cols[0] * ux,
+                t.cols[1] * ux)
+        n = nby * nbx - (hole[1] - hole[0]) * (hole[3] - hole[2])
+        seen = np.zeros((nby, nbx), dtype=int)
+        for i in range(n):
+            by, bx = _unit_at(i, nbx, *hole)
+            seen[by, bx] += 1
+        tiles = _tile_blocks(t, (nby, nbx))
+        assert (seen[~tiles] == 1).all() and (seen[tiles] == 0).all()
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_shard_tile_share_at_lookup_50(fast):
+    """At 8192^2, lookup 50, on the 2x2 mesh: >= 90% of every 4096^2 core
+    (K4) and of every 4196^2 haloed block (K3's origin entry: 0.90-0.92,
+    its halo rows and columns near the raster's edge stay per-thread) lie
+    in tiles; on make_mesh()'s 1x1 block, K4 covers what K1 covers."""
+    _, Rmax, K = _reach(50, fast)
+    shares = {"K4": [], "K3": []}
+    for arr, kid, geom in _shard_geometries((8192, 8192), (2, 2), 50):
+        t = cs.tile_route(*arr, Rmax, False, K, **geom)
+        _, (gh, gw), _, _ = _grid_geometry(arr, geom)
+        shares[kid].append(t.n_tiles * cs.TILE[0] * cs.TILE[1] / (gh * gw))
+        assert 2 * t.smem_bytes <= 228 * 1024
+    assert min(shares["K4"]) >= 0.9 and min(shares["K3"]) >= 0.9, shares
+    (arr, _, geom), = [g for g in _shard_geometries((8192, 8192), (1, 1), 50)
+                       if g[1] == "K4"]
+    one = cs.tile_route(*arr, Rmax, False, K, **geom)
+    whole = cs.tile_route(8192, 8192, Rmax, False, K)
+    assert (one.rows, one.cols) == (whole.rows, whole.cols)
+
+
+def test_haloed_blocks_take_tma():
+    """The haloed blocks of the sharded path are contiguous, 16-byte
+    aligned and 4196 / 8292 floats wide at 8192^2, lookup 50 (here on a
+    128-row raster of the same width), so the tile kernel loads them with
+    TMA; a width that is not a multiple of 4 goes to cp.async."""
+    from neilpy_tpu_torch.dist.halo import _shard, halo_exchange_2d
+    Z = torch.zeros((128, 8192))
+    for mesh, width in (((1, 2), 4196), ((1, 1), 8292)):
+        grid = np.empty(mesh, dtype=object)
+        grid[:] = torch.device("cpu")
+        for row in halo_exchange_2d(_shard(Z, grid), 50, "nan"):
+            for block in row:
+                assert block.shape == (228, width) and block.is_contiguous()
+                assert block.data_ptr() % 16 == 0
+                assert cs._tile_load(block) == 1
+    odd = halo_exchange_2d(_shard(torch.zeros((64, 771)), grid), 1, "nan")
+    assert cs._tile_load(odd[0][0]) == 0
+
+
+def test_shard_tile_args_follow_the_switches():
+    """The K3 and K4 tile arguments go off with the tile switch and the
+    route mask, as K1's."""
+    block = torch.zeros((4196, 4196))
+    geom = dict(grid0=(50, 50), core=(4096, 4096), origin=(-50, -50),
+                global_shape=(8192, 8192))
+    args = cs._tile_args(block, 50, 50, False, **geom)
+    assert args == (64, 2, 128, 1, 64, 1)
+    for name, value in (("_ALLOW_TILE", False), ("_ALLOW_MASKLESS", 0)):
+        saved = getattr(cs, name)
+        try:
+            setattr(cs, name, value)
+            assert not any(cs._tile_args(block, 50, 50, False, **geom))
+        finally:
+            setattr(cs, name, saved)
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
@@ -248,5 +480,80 @@ def test_tile_path_matches_plain_on_card(card, shape, lookup, fast):
                 got = fn(Zd, out=out, **kw)
                 torch.cuda.synchronize()
                 assert all(torch.equal(a, b) for a, b in zip(got, plain))
+    finally:
+        cs._ALLOW_TILE = saved
+
+
+def _nan_raster(shape, seed):
+    Z = np.random.default_rng(seed).normal(size=shape).cumsum(0).cumsum(1)
+    Z = Z.astype(np.float32)
+    Z[shape[0] // 2, shape[1] // 2] = np.nan
+    return Z
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,lookup,fast", [
+    ((600, 900), 12, False), ((515, 771), 50, True), ((1000, 1537), 50,
+                                                      False)])
+def test_k3_tile_path_matches_plain_on_card(card, shape, lookup, fast):
+    """K3, both entries (the origin entry on the raster's centre block of a
+    3x3 cut), tile path on and off, into outputs pre-filled with NaN,
+    which no kernel writes: equal to the plain version by value."""
+    Z = _nan_raster(shape, 10)
+    Zd = torch.from_numpy(Z).to(card)
+    H, W = shape
+    block = torch.from_numpy(np.ascontiguousarray(
+        np.pad(Z, lookup, constant_values=np.nan)[
+            H // 3:2 * H // 3 + 2 * lookup,
+            W // 3:2 * W // 3 + 2 * lookup])).to(card)
+    cases = [(Zd, {}), (block, dict(origin=(H // 3 - lookup,
+                                            W // 3 - lookup),
+                                    global_shape=shape))]
+    saved = cs._ALLOW_TILE
+    try:
+        for Z_, extra in cases:
+            kw = dict(cellsize=2.0, lookup_pixels=lookup, fast=fast, **extra)
+            plain = cs.directional_extrema_torch(Z_, **kw)
+            for on in (True, False):
+                cs._ALLOW_TILE = on
+                out = tuple(torch.full((8, *Z_.shape), float("nan"),
+                                       device=card) for _ in range(2))
+                got = cs.directional_extrema_cuda(Z_, out=out, **kw)
+                torch.cuda.synchronize()
+                assert all(torch.equal(a, b) for a, b in zip(got, plain))
+    finally:
+        cs._ALLOW_TILE = saved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,lookup,fast", [
+    ((600, 900), 12, False), ((515, 771), 50, True), ((1000, 1537), 50,
+                                                      False)])
+def test_k4_tile_path_matches_plain_on_card(card, shape, lookup, fast):
+    """K4 on every block of a 2x2 cut of the raster, tile path on and off,
+    into outputs pre-filled with 255: equal to the plain version."""
+    from neilpy_tpu_torch.dist.halo import _shard, halo_exchange_2d
+    Z = _nan_raster(shape, 11)
+    H, W = (shape[0] // 2) * 2, (shape[1] // 2) * 2
+    Zd = torch.from_numpy(np.ascontiguousarray(Z[:H, :W])).to(card)
+    grid = np.empty((2, 2), dtype=object)
+    grid[:] = card
+    blocks = halo_exchange_2d(_shard(Zd, grid), lookup, "nan")
+    kw = dict(cellsize=2.0, threshold_angle=1.0, fast=fast)
+    saved = cs._ALLOW_TILE
+    try:
+        for y, row in enumerate(blocks):
+            for x, block in enumerate(row):
+                args = (block, (y * H // 2, x * W // 2), (H, W), lookup)
+                plain = cs.openness_counts_block_torch(*args, **kw)
+                for on in (True, False):
+                    cs._ALLOW_TILE = on
+                    out = tuple(torch.full(plain[0].shape, 255,
+                                           dtype=torch.uint8, device=card)
+                                for _ in range(2))
+                    got = cs.openness_counts_block_cuda(*args, out=out, **kw)
+                    torch.cuda.synchronize()
+                    assert all(torch.equal(a, b)
+                               for a, b in zip(got, plain))
     finally:
         cs._ALLOW_TILE = saved

@@ -5,8 +5,10 @@ Run on a machine with the CUDA toolkit, from the root of a checkout::
 
     python3 tools/ladder_sass.py [source ...]
 
-Each source (default: ``openness_counts`` and ``openness_counts_plan``
-of ``neilpy_tpu_torch/csrc``) is compiled to a cubin with the package's
+Each source (default: the four that run the tile body,
+``openness_counts``, ``openness_counts_plan``, ``directional_extrema`` and
+``openness_counts_block`` of ``neilpy_tpu_torch/csrc``) is compiled to a
+cubin with the package's
 own nvcc flags (``neilpy_tpu_torch/_build.py``), disassembled with
 ``cuobjdump -sass``, and every loop of every kernel (a backward branch)
 is reported as its instruction count, its global loads (``LDG``), its
@@ -77,4 +79,5 @@ def main(sources):
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:] or ["openness_counts", "openness_counts_plan"])
+    main(sys.argv[1:] or ["openness_counts", "openness_counts_plan",
+                          "directional_extrema", "openness_counts_block"])
