@@ -12,21 +12,24 @@ openness / skyview / ternary reduction), K3 (the per-direction extrema
 planes, with and without a global origin), K4 (the counts of one
 haloed shard block) and K5 (the static region plan of K1 and K2).  Each
 kernel routes every (thread block, direction) pair to the masked or the
-maskless ladder, and K1, K3 (both entries), K4 and K5/counts run their
-all-safe interior as tiles of 32 x 64 pixels with the Rmax halo in shared
-memory (``csrc/ladder_tile.cuh``, filled by TMA or by cp.async; on a
-shard block only where the window also lies inside the global raster);
-``routes_vs_plain`` holds both routes of K1 and K2 against each other
-(equal) and the plain version, and K1, K3, K3's origin entry, K4 and
-K5/counts with the tile path on and off against the plain version, on NaN
-holes (also inside tiles, on both load paths), unaligned shapes and
-lookups 1 to 100, ``tile_reaches_vs_plain`` holds those five against the
-plain version on every ladder that takes the tile path (every halo
-bucket, on both load paths), the tiled kernels always writing into
-outputs pre-filled with a value they never write (255 for counts, NaN for
-planes) so a pixel no launch writes shows, and
-``maskless_share`` checks that at 8192^2 the host's route table sends
-more than 90% of the pairs down the maskless ladder.  It checks the port against the f64 numpy
+maskless ladder, and every kernel (K1, K2, K3 with both entries, K4, K5
+for the counts and the reductions) runs its all-safe interior as tiles of
+32 x 64 pixels with the Rmax halo in shared memory
+(``csrc/ladder_tile.cuh``, filled by TMA or by cp.async; on a shard block
+only where the window also lies inside the global raster; K2's and
+K5/reduced's fold as the tile's epilogue); ``routes_vs_plain`` holds both
+routes of K1 and K2 against each other (equal; K2's bit for bit) and
+every kernel with the tile path on and off against the plain version,
+on NaN holes (also inside tiles, on both load paths), unaligned shapes
+and lookups 1 to 100, ``tile_reaches_vs_plain`` holds the seven tiled
+launches (K1, K5/counts, K2 and K5/reduced in each mode, K3, K3's origin
+entry, K4) against the plain version on every ladder that takes the tile
+path (every halo bucket, on both load paths), the tiled kernels always
+writing into outputs pre-filled with a value they never write (255 for
+counts, NaN for planes and sums, 0xFFFF for ternary codes) so a pixel no
+launch writes shows, and ``maskless_share`` checks that at 8192^2 the
+host's route table sends more than 90% of the pairs down the maskless
+ladder.  It checks the port against the f64 numpy
 oracles of ``tests/reference_impls.py``, then drives three paths at the
 reference scale, an 8192 x 8192 DEM written as a GeoTIFF and read back
 with ``imread``, at lookup 50:
@@ -53,11 +56,11 @@ just after, and every output is compared with its plain version (the
 sharded outputs with the single-device ones) at full size.  Then
 ``full_size_vs_plain`` holds the raw outputs of K1 and K5 (counts, both
 ladders), K2 and K5 (each reduction) and K3 (the planes) against their
-plain versions at 8192^2, lookup 50 (K1, K3 and K5/counts tile path on and
-off).  Last, it times each kernel on each route (all blocks masked,
-dynamic, static; K1, K3, K4 and K5/counts also per-thread, the tile path
-off; K3's origin entry on a 2 x 2 mesh block, K4 on a 2 x 2 block on both
-ladders and on ``make_mesh()``'s 1 x 1 block) and its plain version with
+plain versions at 8192^2, lookup 50, tile path on and off.  Last, it
+times each kernel on each route (all blocks masked, dynamic, static;
+each also per-thread, the tile path off; K3's origin entry on a 2 x 2
+mesh block, K4 on a 2 x 2 block on both ladders and on
+``make_mesh()``'s 1 x 1 block) and its plain version with
 CUDA events, checks that both routes beat the all-masked launch (so the
 kernels really take the maskless ladder) and that the tile path beats the
 per-thread one (so it really runs), times K5/counts at lookup 12 (the
@@ -65,7 +68,8 @@ enhance pass's second launch) and the
 ``geomorphons`` call with the tile path on and off, and times the sharded
 call against the single-device one; the kernel table gives each kernel's
 bound (operations at the f32 instruction rate or bytes at the HBM rate,
-whichever is larger).
+whichever is larger; for K2 and K5/reduced the operations of the fold
+too, counted from the TPU kernel's body).
 
 Tolerances, kernel against plain version: counts, classes, extrema and
 ternary codes exact; openness within 5e-5 degrees, with +inf (a pixel
@@ -82,7 +86,6 @@ exits non-zero without that line; so does a machine with no CUDA device.
 
 import contextlib
 import json
-import re
 import statistics
 import subprocess
 import sys
@@ -103,11 +106,27 @@ TIMED_RUNS = 5
 # 33.5e12 single f32 instructions per second; and HBM3
 PEAK_F32_OPS = 67e12 / 2
 PEAK_HBM_BYTES = 3.35e12
-OPS_PER_STEP = 4               # sub, mul, max, min per ladder step: no FMA
+OPS_PER_STEP = 4               # sub, mul, max, min per ladder step: (Z-c)*s
+# K2's fold per pixel and direction, counted as elementwise operations of
+# the TPU kernel's own body (pallas_scan.py:911-942, reduce_dir), the same
+# work whatever implements it, at its least: a multiply whose one use is an
+# add or a subtract counts with it as one operation (an FMA, one
+# instruction on the card).  Openness: two _atan_f32 (ATAN_OPS, the
+# equations of its jaxpr, less ATAN_FMAS such pairs: its polynomial's
+# three Horner steps and p*z*r + r) plus seen, two subtractions from pi/2,
+# -mn, two selects and two accumulates; svf max, 1 + t*t (one FMA), sqrt,
+# div, accumulate; ternary with neg_mode seen and the tangent-space
+# classify (19, 1 + a*b one FMA: 18), two "&", the digit (two selects, add,
+# sub), times 3^d and accumulate (one FMA); without it seen, two compares,
+# not, or, and, the digit, times 3^d and accumulate (one FMA)
+ATAN_OPS = 28
+ATAN_FMAS = 4
+FOLD_OPS = {("openness", True): 2 * (ATAN_OPS - ATAN_FMAS) + 8,
+            ("svf", True): 5, ("ternary", True): 25, ("ternary", False): 11}
 # both routes must beat the all-masked launch by this factor at 8192^2
 # (they take the maskless ladder on ~99% of the pairs)
 ROUTE_GAIN = 0.8
-# the tile path of K1 and K5/counts must beat their per-thread bodies by
+# the tile path of every tiled kernel must beat its per-thread body by
 # this factor at 8192^2 (it takes ~97% of the pixels there)
 TILE_GAIN = 0.9
 OPENNESS_TOL = 5e-5            # degrees: atanf vs torch.atan, per direction
@@ -132,21 +151,6 @@ def card_line():
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
-
-
-def ptxas_summary(log):
-    """[kernel, registers, spill bytes stored, spill bytes loaded] per
-    function of the build's ``ptxas -v`` log (mangled names)."""
-    out, fn, spill = [], None, (0, 0)
-    for ln in log.splitlines():
-        if "Function properties for" in ln:
-            fn = ln.split("Function properties for", 1)[1].strip()
-        elif "spill stores" in ln:
-            spill = tuple(int(v) for v in re.findall(r"(\d+) bytes spill", ln))
-        elif fn is not None and (m := re.search(r"Used (\d+) registers", ln)):
-            out.append([fn, int(m.group(1)), *spill])
-            fn, spill = None, (0, 0)
-    return out
 
 
 def bench_input(shape):
@@ -190,12 +194,23 @@ def ladder_steps(H, W, ladder, core=None):
                for dr, dc in OFFSETS for L in ladder)
 
 
-def bound(steps, nbytes):
+def fold_ops(mode, pixels, neg_mode=True):
+    """K2's fold over 8 directions of ``pixels`` pixels, in operations
+    (``FOLD_OPS``; svf and openness take no ``neg_mode``)."""
+    return FOLD_OPS[mode, neg_mode or mode != "ternary"] * 8 * pixels
+
+
+def bound(steps, nbytes, fold=0, per_step=OPS_PER_STEP):
     """(ms, side): the least time the card could take, the larger of the
-    operations at the f32 instruction rate (none of them fuses into an
-    FMA) and the bytes (each input read once, each output written once)
-    at the HBM rate."""
-    t_ops = OPS_PER_STEP * steps / PEAK_F32_OPS * 1e3
+    operations at the f32 instruction rate and the bytes (each input read
+    once, each output written once) at the HBM rate.  The operations are
+    ``per_step`` per ladder step (``OPS_PER_STEP``, 3 where only the max is
+    needed: (Z - c) * s rounds twice, so no FMA computes it) plus
+    ``fold``, the operations K2 and K5/reduced spend folding the
+    directions, which the TPU kernel spends too (``fold_ops``, with its
+    multiply-adds fused).  A divide or a square root counts as one
+    operation, though the card issues several instructions for it."""
+    t_ops = (per_step * steps + fold) / PEAK_F32_OPS * 1e3
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -413,11 +428,46 @@ def unwritten_planes(Zd):
                  for _ in range(2))
 
 
+# K2's mode variants: (mode, keyword arguments)
+REDUCED_VARIANTS = {
+    "openness": ("openness", {}), "svf": ("svf", {}),
+    "ternary": ("ternary", {"threshold_angle": 1.0}),
+    "ternary neg_mode=False": ("ternary", {"threshold_angle": 1.0,
+                                           "neg_mode": False})}
+
+
+def unwritten_reduced(Zd, mode):
+    """An ``out`` tuple for K2 and K5/reduced in ``mode``, pre-filled with
+    a value no launch writes: NaN for the sums (a sum is finite or +inf),
+    0xFFFF for the codes (at most 6560)."""
+    if mode == "ternary":
+        return (torch.full(Zd.shape, 0xFFFF, dtype=torch.int32,
+                           device=Zd.device).to(torch.uint16),)
+    return tuple(torch.full(Zd.shape, float("nan"), device=Zd.device)
+                 for _ in range(2 if mode == "openness" else 1))
+
+
+def reduced_bits(t):
+    """A reduced output as int32 bits: the sums by their bit pattern (so a
+    -0 against a +0 shows), the uint16 codes widened (a storage type)."""
+    return t.int() if t.dtype == torch.uint16 else t.view(torch.int32)
+
+
+def reduced_identical(outs, what):
+    """Every output tuple of ``outs`` ({label: tuple}) equals the first
+    bit for bit."""
+    (first, ref), *rest = outs.items()
+    for label, got in rest:
+        check(all(torch.equal(reduced_bits(a), reduced_bits(b))
+                  for a, b in zip(got, ref)),
+              f"{what}: {label} differs from {first} bit for bit")
+
+
 def tile_case(cuda_scan, nan_grid, Zd, lookup, fast, plan=False,
               **geometry):
     """(load path, a NaN inside a tile) of one launch on the array ``Zd``
     as the host routes it (``cuda_scan._tile_args``, the arguments the
-    kernel gets): K1 / K3 (``plan`` False) or K5/counts on a whole raster,
+    kernel gets): K1, K2 or K3 (``plan`` False) or K5 on a whole raster,
     K4 or K3's origin entry given a shard block's ``geometry``
     (``cuda_scan.tile_route``); ``nan_grid`` marks the NaN cells of the
     kernel's grid (K4: the core).  None where no tile runs."""
@@ -432,11 +482,14 @@ def tile_case(cuda_scan, nan_grid, Zd, lookup, fast, plan=False,
             bool((nan_grid & t.pixels(*nan_grid.shape)).any()))
 
 
-def tiled_runs(cuda_scan):
+def tiled_runs(cuda_scan, tiled=True):
     """Tile path on, then off (``per_thread``): the contexts a comparison
-    runs each kernel under."""
-    return ((True, contextlib.nullcontext), (False,
-                                             lambda: per_thread(cuda_scan)))
+    runs each kernel under.  Where no tile runs (``tiled`` false) the two
+    would be the same launch, so only the first."""
+    runs = [(True, contextlib.nullcontext)]
+    if tiled:
+        runs.append((False, lambda: per_thread(cuda_scan)))
+    return runs
 
 
 def planes_equal(got, want, what):
@@ -451,19 +504,23 @@ def planes_equal(got, want, what):
 def routes_vs_plain(cuda_scan, dev):
     """Phase 3b: both routes of K1 and K2 (the dynamic kernel and K5's
     static plan), exact and fast ladders, against each other and the
-    plain version; K1, K5/counts, K3, K3's origin entry and K4 (dynamic
-    route only for the last three) with the tile path on and off against
-    the plain version, into outputs no launch leaves unwritten unseen;
-    lookups 1 to 100, so R also exceeds the smaller rasters.  Between
-    routes every output is equal (max |diff| 0, openness too); against the
-    plain version counts, codes and extrema exactly (extrema by value),
-    openness and skyview within the stated tolerances.  Both tile load
-    paths must run in each tiled kernel, each also on a raster with a NaN
-    inside its tiles."""
+    plain version; every kernel (K1, K5/counts, K2 and K5/reduced in each
+    mode variant, K3, K3's origin entry and K4, dynamic route only for the
+    last three) with the tile path on and, where a tile runs (elsewhere
+    the two are one launch), off against the plain version, into outputs
+    no launch leaves unwritten unseen; lookups 1 to 100, so R
+    also exceeds the smaller rasters.  Between routes and between tile
+    path on and off every output is equal (counts exactly; K2's and
+    K5/reduced's bit for bit, openness sums too); against the plain
+    version counts, codes and extrema exactly (extrema by value), openness
+    and skyview within the stated tolerances.  Both tile load paths must
+    run in each tiled kernel, each also on a raster with a NaN inside its
+    tiles."""
     worst = {"K1": 0, "K2": 0.0, "K3": 0.0, "K4": 0, "K5/counts": 0,
              "K5/reduced": 0.0}
     n = {k: 0 for k in worst}
-    tiled_kernels = ("K1", "K5/counts", "K3", "K3 origin", "K4")
+    tiled_kernels = ("K1", "K5/counts", "K2", "K5/reduced", "K3",
+                     "K3 origin", "K4")
     tile_runs = {f"{k} {load}": 0 for k in tiled_kernels
                  for load in ("tma", "cp.async")}
     nan_in_tile = dict(tile_runs)
@@ -474,9 +531,6 @@ def routes_vs_plain(cuda_scan, dev):
             nan_in_tile[f"{kid} {case[0]}"] += case[1]
 
     lookups = (1, 2, 7, 12, 24, 33, 50, 100)
-    modes = [("openness", {}), ("svf", {}),
-             ("ternary", {"threshold_angle": 1.0}),
-             ("ternary", {"threshold_angle": 1.0, "neg_mode": False})]
     for name, Z in route_rasters():
         Zd = torch.from_numpy(Z).to(dev)
         nan = np.isnan(Z)
@@ -489,7 +543,9 @@ def routes_vs_plain(cuda_scan, dev):
                 for kid, fn in (("K1", cuda_scan.openness_counts_cuda),
                                 ("K5/counts",
                                  cuda_scan.openness_counts_plan_cuda)):
-                    for tiled, ctx in tiled_runs(cuda_scan):
+                    case = tile_case(cuda_scan, nan, Zd, lk, fast,
+                                     kid == "K5/counts")
+                    for tiled, ctx in tiled_runs(cuda_scan, case):
                         with ctx():
                             k = fn(Zd, threshold_angle=1.0,
                                    out=unwritten(Zd), **kw)
@@ -500,28 +556,33 @@ def routes_vs_plain(cuda_scan, dev):
                                         f"{'on' if tiled else 'off'}) != "
                                         f"plain on {what} (max |diff| {err})")
                         n[kid] += 1
-                    count(kid, tile_case(cuda_scan, nan, Zd, lk, fast,
-                                         kid == "K5/counts"))
-                for mode, extra in modes:
+                    count(kid, case)
+                for variant, (mode, extra) in REDUCED_VARIANTS.items():
                     mkw = dict(kw, **extra)
-                    dyn = cuda_scan.openness_reduced_cuda(Zd, mode, **mkw)
-                    stat = cuda_scan.openness_reduced_plan_cuda(Zd, mode,
-                                                                **mkw)
                     p = cuda_scan.openness_reduced_torch(Zd, mode, **mkw)
-                    torch.cuda.synchronize()
-                    for a, b in zip(dyn, stat):
-                        # uint16 is a storage type: compare as int32
-                        if a.dtype == torch.uint16:
-                            a, b = a.int(), b.int()
-                        check(torch.equal(a, b),
-                              f"K2 {mode} {extra}: routes differ on {what}")
-                    for kid, k in (("K2", dyn), ("K5/reduced", stat)):
-                        worst[kid] = max(worst[kid], reduced_err(
-                            cuda_scan, mode, k, p,
-                            f"{kid} {mode} {extra} on {what}"))
-                        n[kid] += 1
+                    outs = {}
+                    for kid, fn in (("K2", cuda_scan.openness_reduced_cuda),
+                                    ("K5/reduced",
+                                     cuda_scan.openness_reduced_plan_cuda)):
+                        case = tile_case(cuda_scan, nan, Zd, lk, fast,
+                                         kid == "K5/reduced")
+                        for tiled, ctx in tiled_runs(cuda_scan, case):
+                            with ctx():
+                                k = fn(Zd, mode, out=unwritten_reduced(
+                                    Zd, mode), **mkw)
+                            torch.cuda.synchronize()
+                            label = (f"{kid} (tile path "
+                                     f"{'on' if tiled else 'off'})")
+                            worst[kid] = max(worst[kid], reduced_err(
+                                cuda_scan, mode, k, p,
+                                f"{label} {variant} on {what}"))
+                            outs[label] = k
+                            n[kid] += 1
+                        count(kid, case)
+                    reduced_identical(outs, f"{variant} on {what}")
                 p = cuda_scan.directional_extrema_torch(Zd, **kw)
-                for tiled, ctx in tiled_runs(cuda_scan):
+                case = tile_case(cuda_scan, nan, Zd, lk, fast)
+                for tiled, ctx in tiled_runs(cuda_scan, case):
                     with ctx():
                         k = cuda_scan.directional_extrema_cuda(
                             Zd, out=unwritten_planes(Zd), **kw)
@@ -530,7 +591,7 @@ def routes_vs_plain(cuda_scan, dev):
                     worst["K3"] = max(worst["K3"], planes_equal(
                         k, p, f"K3 extrema (tile path {state}) on {what}"))
                     n["K3"] += 1
-                count("K3", tile_case(cuda_scan, nan, Zd, lk, fast))
+                count("K3", case)
         # K4 and K3's origin entry on blocks of this raster padded with NaN:
         # a corner block and, where the raster allows, an interior one
         H, W = Z.shape
@@ -546,7 +607,11 @@ def routes_vs_plain(cuda_scan, dev):
                 for fast in (False, True):
                     bkw = dict(cellsize=2.0, threshold_angle=1.0, fast=fast)
                     p = cuda_scan.openness_counts_block_torch(*args, **bkw)
-                    for tiled, ctx in tiled_runs(cuda_scan):
+                    case = tile_case(
+                        cuda_scan, core_nan, block, lk, fast,
+                        **cuda_scan._block_tiles(block, (oy, ox), (H, W),
+                                                 lk))
+                    for tiled, ctx in tiled_runs(cuda_scan, case):
                         with ctx():
                             k = cuda_scan.openness_counts_block_cuda(
                                 *args, out=unwritten(block, (bh, bw)), **bkw)
@@ -557,15 +622,15 @@ def routes_vs_plain(cuda_scan, dev):
                                         f"{'on' if tiled else 'off'}) != "
                                         f"plain on {where} fast={fast}")
                         n["K4"] += 1
-                    count("K4", tile_case(
-                        cuda_scan, core_nan, block, lk, fast,
-                        **cuda_scan._block_tiles(block, (oy, ox), (H, W),
-                                                 lk)))
+                    count("K4", case)
                 org = (oy - lk, ox - lk)
                 okw = dict(cellsize=2.0, lookup_pixels=lk, origin=org,
                            global_shape=(H, W))
                 p = cuda_scan.directional_extrema_torch(block, **okw)
-                for tiled, ctx in tiled_runs(cuda_scan):
+                block_nan = np.isnan(block.cpu().numpy())
+                case = tile_case(cuda_scan, block_nan, block, lk, False,
+                                 origin=org, global_shape=(H, W))
+                for tiled, ctx in tiled_runs(cuda_scan, case):
                     with ctx():
                         k = cuda_scan.directional_extrema_cuda(
                             block, out=unwritten_planes(block), **okw)
@@ -575,10 +640,7 @@ def routes_vs_plain(cuda_scan, dev):
                         k, p, f"K3 origin entry (tile path {state}) on "
                               f"{where}"))
                     n["K3"] += 1
-                block_nan = np.isnan(block.cpu().numpy())
-                count("K3 origin", tile_case(cuda_scan, block_nan, block, lk,
-                                             False, origin=org,
-                                             global_shape=(H, W)))
+                count("K3 origin", case)
     check(min(tile_runs.values()) > 0 and min(nan_in_tile.values()) > 0,
           f"a tile load path did not run in a kernel, or never over a NaN: "
           f"launches {tile_runs}, with a NaN in a tile {nan_in_tile}")
@@ -597,8 +659,13 @@ def tile_reaches_vs_plain(cuda_scan, dev):
     a haloed block with R = lookup, whose core sits at (1024, 1024) of a
     4096^2 raster, so only the block bounds its tiles; K4's window starts
     R % 16 columns further left), written into outputs pre-filled with a
-    value they never write, against the plain version, max |diff| 0.
-    Every halo bucket must run on both load paths in every kernel."""
+    value they never write, against the plain version, max |diff| 0; K2
+    and K5/reduced the same way in openness on every ladder and in each
+    other mode variant (svf, ternary with and without ``neg_mode``) on
+    the first ladder of each halo bucket and load path, against the plain
+    version at the stated tolerances and, where both ran, against each
+    other bit for bit.  Every halo bucket must run on both load paths in
+    every kernel, and in K2 and K5/reduced in every mode variant."""
     r = np.random.default_rng(13)
     rasters = []
     for W in (512, 515):
@@ -611,7 +678,7 @@ def tile_reaches_vs_plain(cuda_scan, dev):
             ladders.setdefault(cuda_scan._ladder(lk, fast), (lk, fast))
     gshape = (4096, 4096)
     ran = {}
-    worst = {"counts": 0, "planes": 0.0}
+    worst = {"counts": 0, "planes": 0.0, "reduced": 0.0}
     for name, Z in rasters:
         Zd = torch.from_numpy(Z).to(dev)
         for ladder, (lk, fast) in ladders.items():
@@ -672,9 +739,41 @@ def tile_reaches_vs_plain(cuda_scan, dev):
                 worst[kind] = max(worst[kind], err)
                 key = f"{kid} {'tma' if args[5] else 'cp.async'} {args[0]}"
                 ran[key] = ran.get(key, 0) + 1
+            outs = {variant: {} for variant in REDUCED_VARIANTS}
+            for kid, fn, plan in (
+                    ("K2", cuda_scan.openness_reduced_cuda, False),
+                    ("K5/reduced", cuda_scan.openness_reduced_plan_cuda,
+                     True)):
+                args = cuda_scan._tile_args(Zd, Rmax, K, plan)
+                if not args[0]:
+                    continue
+                load = "tma" if args[5] else "cp.async"
+                for variant, (mode, extra) in REDUCED_VARIANTS.items():
+                    key = f"{kid} {variant} {load} {args[0]}"
+                    if variant != "openness" and key in ran:
+                        continue
+                    if variant not in plain:
+                        plain[variant] = cuda_scan.openness_reduced_torch(
+                            Zd, mode, **kw, **extra)
+                    k = fn(Zd, mode, out=unwritten_reduced(Zd, mode), **kw,
+                           **extra)
+                    torch.cuda.synchronize()
+                    worst["reduced"] = max(worst["reduced"], reduced_err(
+                        cuda_scan, mode, k, plain[variant],
+                        f"{kid} {variant} tile path on {name} lookup={lk} "
+                        f"fast={fast} halo={args[0]}"))
+                    outs[variant][kid] = k
+                    ran[key] = ran.get(key, 0) + 1
+            for variant, both in outs.items():
+                if len(both) == 2:
+                    reduced_identical(both, f"{variant} tile path on {name} "
+                                            f"lookup={lk} fast={fast}")
     want = {f"{kid} {load} {h}"
             for kid in ("K1", "K5/counts", "K3", "K3 origin", "K4")
             for load in ("tma", "cp.async") for h in cuda_scan._TILE_HALOS}
+    want |= {f"{kid} {variant} {load} {h}" for kid in ("K2", "K5/reduced")
+             for variant in REDUCED_VARIANTS for load in ("tma", "cp.async")
+             for h in cuda_scan._TILE_HALOS}
     check(want <= set(ran), f"halo buckets not run: {sorted(want - set(ran))}")
     emit(phase="tile_reaches_vs_plain", rasters=[r[0] for r in rasters],
          ladders=len(ladders), launches_by_kernel_load_halo=ran,
@@ -706,9 +805,10 @@ def full_size_vs_plain(cuda_scan, Zd):
     """Phase 6b: the kernels' raw outputs at 8192^2, lookup 50, against
     their plain versions on the same input (uncounted): K1 and K5/counts
     (threshold 1, both ladders, tile path on and off) exactly and equal to
-    each other; K2 and K5/reduced (each mode, exact ladder; K2 also
-    openness on the fast ladder) at the stated tolerances and equal to
-    each other; K3's planes (tile path on and off, into NaN-filled
+    each other; K2 and K5/reduced (each mode, exact ladder, and openness
+    on the fast ladder; tile path on and off, into outputs pre-filled with
+    a value no launch writes) at the stated tolerances and equal to each
+    other bit for bit; K3's planes (tile path on and off, into NaN-filled
     outputs) exactly by value.  The paths compare only what these outputs
     become (classes, degrees), which can hide a wrong count or
     extremum."""
@@ -742,18 +842,20 @@ def full_size_vs_plain(cuda_scan, Zd):
     for mode, fast, extra in variants:
         mkw = dict(kw, fast=fast, **extra)
         p = cuda_scan.openness_reduced_torch(Zd, mode, **mkw)
-        dyn = cuda_scan.openness_reduced_cuda(Zd, mode, **mkw)
-        stat = cuda_scan.openness_reduced_plan_cuda(Zd, mode, **mkw)
-        torch.cuda.synchronize()
-        for a, b in zip(dyn, stat):
-            if a.dtype == torch.uint16:
-                a, b = a.int(), b.int()
-            check(torch.equal(a, b),
-                  f"K2 {mode} fast={fast}: routes differ at 8192^2")
-        for kid, k in (("K2", dyn), ("K5/reduced", stat)):
-            worst[kid] = max(worst[kid], reduced_err(
-                cuda_scan, mode, k, p, f"{kid} {mode} fast={fast} at 8192^2"))
-        del p, dyn, stat
+        outs = {}
+        for kid, fn in (("K2", cuda_scan.openness_reduced_cuda),
+                        ("K5/reduced", cuda_scan.openness_reduced_plan_cuda)):
+            for tiled, ctx in tiled_runs(cuda_scan):
+                with ctx():
+                    k = fn(Zd, mode, out=unwritten_reduced(Zd, mode), **mkw)
+                torch.cuda.synchronize()
+                label = f"{kid} (tile path {'on' if tiled else 'off'})"
+                worst[kid] = max(worst[kid], reduced_err(
+                    cuda_scan, mode, k, p,
+                    f"{label} {mode} fast={fast} at 8192^2"))
+                outs[label] = k
+        reduced_identical(outs, f"{mode} fast={fast} at 8192^2")
+        del p, outs, k
     p = cuda_scan.directional_extrema_torch(Zd, **kw)
     for tiled, ctx in tiled_runs(cuda_scan):
         with ctx():
@@ -1150,9 +1252,9 @@ def all_masked(cuda_scan):
 
 
 def per_thread(cuda_scan):
-    """The tile path is off, so K1, K3, K4 and K5/counts run every block
-    on their per-thread bodies, as they did before it: a same-call
-    baseline for the tile path."""
+    """The tile path is off, so every kernel (K1, K2, K3, K4, K5 for the
+    counts and the reductions) runs every block on its per-thread bodies,
+    as it did before the tile: a same-call baseline for the tile path."""
     return _switched(cuda_scan, "_ALLOW_TILE", False)
 
 
@@ -1163,10 +1265,10 @@ def timings(ntt, cuda_scan, Zd, mesh, card, share):
     K2), for K1 (both ladders), K2 (each mode, and openness on the fast
     ladder), K3 (whole raster, and its origin entry on block (0, 0) of the
     2 x 2 mesh, 4196^2) and K4 (that block's 4096^2 core on both ladders,
-    and ``make_mesh()``'s 1 x 1 block on one card, 8292^2); K1, K3 and K4
-    also ``per_thread``, the dynamic (and K1's static) kernels with the tile
-    path off; each route must take under ``ROUTE_GAIN`` of the all-masked
-    time, which
+    and ``make_mesh()``'s 1 x 1 block on one card, 8292^2); K1, K2, K3 and
+    K4 also ``per_thread``, the dynamic (and K1's and K2's static) kernels
+    with the tile path off; each route must take under ``ROUTE_GAIN`` of
+    the all-masked time, which
     shows the kernels take the maskless ladder (``share`` is the host's
     route table's share, printed beside it), and each tile route under
     ``TILE_GAIN`` of its per-thread time, which shows the tile path runs;
@@ -1231,7 +1333,7 @@ def timings(ntt, cuda_scan, Zd, mesh, card, share):
         record("K2", f"{mode}/{ladder}", time_turns(
             routes(cuda_scan.openness_reduced_torch,
                    cuda_scan.openness_reduced_cuda,
-                   cuda_scan.openness_reduced_plan_cuda),
+                   cuda_scan.openness_reduced_plan_cuda, tiled=True),
             lambda fn: fn(Zd, mode, threshold_angle=1.0, fast=fast, **base)),
             mode=mode, ladder=ladder)
     k3 = routes(cuda_scan.directional_extrema_torch,
@@ -1327,11 +1429,13 @@ def kernel_table(cuda_scan, res, launches, max_err, Zd, blocks):
     8192^2, lookup 50, on the ladder and route its path runs (K1 and K2:
     the fast ladder, dynamic route; K3, K4 and K5: the exact ladder; K4
     per 4096^2 core of a 2 x 2 block), and its bound from this run's
-    shapes; the other ladder's and route's times are extra fields.  K1,
-    K3, K4 and K5/counts give their per-thread time (the tile path off), a
-    tile CTA's shared memory, the share of pixels in tiles and the load
-    path, as their launches get them (``tile_launch``; K3 on ``Zd``, K4 on
-    the 2 x 2 mesh's block (0, 0) of ``blocks``); K5/counts also its
+    shapes (K2 and K5/reduced: the ladder and the fold, ``fold_ops``); the
+    other ladder's and route's times are extra fields.  Every kernel gives
+    its per-thread time (the tile path off), a tile CTA's shared memory,
+    the share of pixels in tiles and the load path, as its launches get
+    them (``tile_launch``; K3 on ``Zd``, K4 on the 2 x 2 mesh's block
+    (0, 0) of ``blocks``); K2 and K5/reduced also each mode's times and
+    bounds on the exact ladder; K5/counts also its
     lookup-12 launch, K3 its origin entry on that block (``origin_entry``),
     K4 its fast-ladder launch on it (``fast``) and its launch on
     ``make_mesh()``'s 1 x 1 block (``one_by_one``).  No single PyTorch call
@@ -1345,27 +1449,31 @@ def kernel_table(cuda_scan, res, launches, max_err, Zd, blocks):
     bh, bw = H // 2, W // 2
     Hh, Wh = res["K4 block"]
     counts_bytes = 4 * px + 2 * px     # input once, outputs once
-    sums_bytes = 4 * px + 8 * px
+    # input once, the mode's outputs once: two f32 sums, one, a uint16 code
+    reduced_bytes = {"openness": 12 * px, "svf": 8 * px, "ternary": 6 * px}
     block_bytes = 4 * Hh * Wh + 2 * bh * bw
     rows = [
         # id, source name, TPU kernel line, timing key, route, ladder,
-        # bound (steps, bytes)
+        # bound (steps, bytes, fold operations)
         ("K1", "openness_counts", 401, ("K1", "fast"), "dynamic",
-         (steps["fast"], counts_bytes)),
+         (steps["fast"], counts_bytes, 0)),
         ("K2", "openness_reduced", 856, ("K2", "openness/fast"), "dynamic",
-         (steps["fast"], sums_bytes)),
+         (steps["fast"], reduced_bytes["openness"],
+          fold_ops("openness", px))),
         ("K3", "directional_extrema", 292, ("K3", "exact"), "dynamic",
-         (steps["exact"], 4 * px + 64 * px)),
+         (steps["exact"], 4 * px + 64 * px, 0)),
         ("K4", "openness_counts_block", 1121, ("K4", "exact"), "dynamic",
-         (ladder_steps(Hh, Wh, exact, core=(bh, bw)), block_bytes)),
+         (ladder_steps(Hh, Wh, exact, core=(bh, bw)), block_bytes, 0)),
         ("K5/counts", "openness_counts_plan", 774, ("K1", "exact"),
-         "static", (steps["exact"], counts_bytes)),
+         "static", (steps["exact"], counts_bytes, 0)),
         ("K5/reduced", "openness_reduced_plan", 774,
-         ("K2", "openness/exact"), "static", (steps["exact"], sums_bytes)),
+         ("K2", "openness/exact"), "static",
+         (steps["exact"], reduced_bytes["openness"],
+          fold_ops("openness", px))),
     ]
     kernels = []
-    for kid, name, line, key, route, (n_steps, nbytes) in rows:
-        bound_ms, side = bound(n_steps, nbytes)
+    for kid, name, line, key, route, (n_steps, nbytes, fold) in rows:
+        bound_ms, side = bound(n_steps, nbytes, fold)
         kernels.append({
             "name": name, "id": kid, "route": "cuda",
             "source": f"neilpy_tpu_torch/csrc/{name}.cu",
@@ -1375,20 +1483,26 @@ def kernel_table(cuda_scan, res, launches, max_err, Zd, blocks):
             "bound_ms": bound_ms, "bound_by": side, "library_ms": None,
             "ladder": key[1].split("/")[-1], "masked_ms": res[(*key,
                                                               "masked")]})
-    routes = ("plain", "masked", "dynamic", "static")
-    exact_bound = {side: bound(steps["exact"], nbytes)[0] for side, nbytes in
-                   (("counts", counts_bytes), ("sums", sums_bytes))}
-    kernels[0]["exact"] = {"ms": {r: res[("K1", "exact", r)] for r in
-                                  (*routes, "per_thread",
-                                   "static_per_thread")},
-                           "bound_ms": exact_bound["counts"]}
+    routes = ("plain", "masked", "dynamic", "static", "per_thread",
+              "static_per_thread")
+    modes = ("openness", "svf", "ternary")
+    kernels[0]["exact"] = {"ms": {r: res[("K1", "exact", r)]
+                                  for r in routes},
+                           "bound_ms": bound(steps["exact"],
+                                             counts_bytes)[0]}
     tile_source = "neilpy_tpu_torch/csrc/ladder_tile.cuh"
-    for k, fast_, plan, impl in ((0, True, False, "per_thread"),
-                                 (4, False, True, "static_per_thread")):
+    reduced_tile_source = "neilpy_tpu_torch/csrc/openness_reduced_tile.cu"
+    for k, kid, fast_, plan, impl in (
+            (0, "K1", True, False, "per_thread"),
+            (4, "K1", False, True, "static_per_thread"),
+            (1, "K2", True, False, "per_thread"),
+            (5, "K2", False, True, "static_per_thread")):
+        key = (kid, ("fast" if fast_ else "exact") if kid == "K1" else
+               f"openness/{'fast' if fast_ else 'exact'}", impl)
         kernels[k].update(
-            per_thread_ms=res[("K1", "fast" if fast_ else "exact", impl)],
+            per_thread_ms=res[key],
             **tile_launch(cuda_scan, Zd, R, fast_, plan),
-            tile_source=tile_source)
+            tile_source=tile_source if kid == "K1" else reduced_tile_source)
     lk12 = {r: res[("K5/counts", "lookup12", r)]
             for r in ("plain", "masked", "static", "static_per_thread")}
     kernels[4]["lookup12"] = dict(
@@ -1397,14 +1511,23 @@ def kernel_table(cuda_scan, res, launches, max_err, Zd, blocks):
         bound_ms=bound(ladder_steps(H, W, cuda_scan._ladder(ENHANCE_LOOKUP)),
                        counts_bytes)[0],
         **tile_launch(cuda_scan, Zd, ENHANCE_LOOKUP, False, True))
+    # each mode on the exact ladder: the fold of ternary with neg_mode,
+    # as the timings and the path run it; svf reads only each direction's
+    # mx, so its ladder needs no min (the compiled kernel drops it too)
+    exact_reduced_bound = {m: bound(
+        steps["exact"], reduced_bytes[m], fold_ops(m, px),
+        OPS_PER_STEP - (m == "svf"))[0] for m in modes}
     kernels[1]["exact"] = {
         "ms_by_mode": {m: {r: res[("K2", f"{m}/exact", r)] for r in routes}
-                       for m in ("openness", "svf", "ternary")},
-        "bound_ms": exact_bound["sums"]}
+                       for m in modes},
+        "bound_ms_by_mode": exact_reduced_bound}
     kernels[1]["fast_static_ms"] = res[("K2", "openness/fast", "static")]
     kernels[0]["fast_static_ms"] = res[("K1", "fast", "static")]
     kernels[5]["ms_by_mode"] = {m: res[("K2", f"{m}/exact", "static")]
-                                for m in ("openness", "svf", "ternary")}
+                                for m in modes}
+    kernels[5]["per_thread_ms_by_mode"] = {
+        m: res[("K2", f"{m}/exact", "static_per_thread")] for m in modes}
+    kernels[5]["bound_ms_by_mode"] = exact_reduced_bound
 
     def timed(key):
         """A launch's times: its tile, per-thread, masked, plain ms."""
@@ -1472,29 +1595,43 @@ def main():
     _build.load()
     emit(phase="build", seconds=time.perf_counter() - t0,
          library=str(lib.relative_to(HERE)),
-         ptxas=ptxas_summary(lib.with_suffix(".log").read_text()))
+         ptxas=_build.ptxas_summary(lib.with_suffix(".log").read_text()))
 
-    max_err = kernel_vs_plain(cuda_scan, dev)
-    for kid, err in routes_vs_plain(cuda_scan, dev).items():
+    walls = {}  # seconds of each phase, where the script's time goes
+
+    def phase(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        walls[name] = time.perf_counter() - t
+        return out
+
+    max_err = phase("kernel_vs_plain", kernel_vs_plain, cuda_scan, dev)
+    for kid, err in phase("routes_vs_plain", routes_vs_plain, cuda_scan,
+                          dev).items():
         max_err[kid] = max(max_err.get(kid, 0), err)
-    err = tile_reaches_vs_plain(cuda_scan, dev)
+    err = phase("tile_reaches_vs_plain", tile_reaches_vs_plain, cuda_scan,
+                dev)
     for kid, kind in (("K1", "counts"), ("K5/counts", "counts"),
-                      ("K3", "planes"), ("K4", "counts")):
+                      ("K3", "planes"), ("K4", "counts"),
+                      ("K2", "reduced"), ("K5/reduced", "reduced")):
         max_err[kid] = max(max_err[kid], err[kind])
-    oracle_check(ntt, dev)
+    phase("oracle", oracle_check, ntt, dev)
     with tempfile.TemporaryDirectory() as tmp:
         Z, dem = write_dem(ntt, tmp)
-        Zd, main_counts, G, G_fast = main_path(ntt, cuda_scan, dev, tmp, Z,
-                                               dem)
-        counts = openness_path(ntt, cuda_scan, dev, tmp, Z, dem)
+        Zd, main_counts, G, G_fast = phase(
+            "main_path", main_path, ntt, cuda_scan, dev, tmp, Z, dem)
+        counts = phase("openness_path", openness_path, ntt, cuda_scan, dev,
+                       tmp, Z, dem)
     share = maskless_share(cuda_scan, Zd)
-    sharded_counts, mesh, block_errs = sharded_path(ntt, cuda_scan, dev, Zd,
-                                                    G, G_fast)
+    sharded_counts, mesh, block_errs = phase(
+        "sharded_path", sharded_path, ntt, cuda_scan, dev, Zd, G, G_fast)
     del G, G_fast
     for kid, err in [*block_errs.items(),
-                     *full_size_vs_plain(cuda_scan, Zd).items()]:
+                     *phase("full_size_vs_plain", full_size_vs_plain,
+                            cuda_scan, Zd).items()]:
         max_err[kid] = max(max_err[kid], err)
-    res = timings(ntt, cuda_scan, Zd, mesh, card, share)
+    res = phase("timings", timings, ntt, cuda_scan, Zd, mesh, card, share)
+    emit(phase="walls", seconds=walls)
 
     # each kernel's launches on the path that runs it
     launches = {"K1": main_counts["K1"],

@@ -21,6 +21,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -100,11 +101,23 @@ def build():
     return lib
 
 
-@functools.lru_cache(maxsize=None)
-def load():
-    """Build if needed, then load the library once per process and
-    declare its C entries."""
-    lib = ctypes.CDLL(str(build()))
+def ptxas_summary(log):
+    """[kernel, registers, spill bytes stored, spill bytes loaded] per
+    function of the build's ``ptxas -v`` log (mangled names)."""
+    out, fn, spill = [], None, (0, 0)
+    for ln in log.splitlines():
+        if "Function properties for" in ln:
+            fn = ln.split("Function properties for", 1)[1].strip()
+        elif "spill stores" in ln:
+            spill = tuple(int(v) for v in re.findall(r"(\d+) bytes spill", ln))
+        elif fn is not None and (m := re.search(r"Used (\d+) registers", ln)):
+            out.append([fn, int(m.group(1)), *spill])
+            fn, spill = None, (0, 0)
+    return out
+
+
+def entry_argtypes():
+    """{C entry: its ctypes argument types, the stream last}."""
     p = ctypes.c_void_p
     i = ctypes.c_int
     ll = ctypes.c_longlong
@@ -126,16 +139,26 @@ def load():
         "directional_extrema_launch": [*head, *tile, p, p],
         # (..., tile, org_r, org_c, GH, GW, mx, mn)
         "directional_extrema_global_launch": [*head, *tile, *hw, *hw, p, p],
-        # (..., mode, neg_mode, T, out0, out1, code)
-        "openness_reduced_launch": [*head, i, i, f, p, p, p],
-        # (..., plan, mode, neg_mode, T, out0, out1, code)
-        "openness_reduced_plan_launch": [*head, *plan, i, i, f, p, p, p],
+        # (..., tile, mode, neg_mode, T, out0, out1, code)
+        "openness_reduced_launch": [*head, *tile, i, i, f, p, p, p],
+        # (..., tile, plan, mode, neg_mode, T, out0, out1, code)
+        "openness_reduced_plan_launch": [*head, *tile, *plan, i, i, f, p, p,
+                                         p],
     }
-    for name, argtypes in entries.items():
+    return {name: [*argtypes, p] for name, argtypes in entries.items()}
+
+
+@functools.lru_cache(maxsize=None)
+def load():
+    """Build if needed, then load the library once per process and
+    declare its C entries."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in entry_argtypes().items():
         fn = getattr(lib, name)
-        fn.argtypes = [*argtypes, p]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     # (halo, Rmax, K) -> the dynamic shared memory of one tile CTA
+    i = ctypes.c_int
     lib.ladder_tile_smem_bytes.argtypes = [i, i, i]
-    lib.ladder_tile_smem_bytes.restype = ll
+    lib.ladder_tile_smem_bytes.restype = ctypes.c_longlong
     return lib

@@ -1,36 +1,41 @@
 // The tiled interior body of the ladder kernels: K1 (openness_counts.cu),
-// K5/counts (openness_counts_plan.cu), K4 (openness_counts_block.cu) and K3,
-// both entries (directional_extrema.cu).  A thread block (CTA) owns a core
+// K5/counts (openness_counts_plan.cu), K4 (openness_counts_block.cu), K3,
+// both entries (directional_extrema.cu), and K2 (openness_reduced.cu) and
+// K5/reduced (openness_reduced_plan.cu), whose tile kernels are built once
+// for both in openness_reduced_tile.cu.  A thread block (CTA) owns a core
 // of kTileH x kTileW output pixels, copies the core with an Rmax-wide halo
 // into shared memory once, and runs every ladder step of the core from
 // there, kTileRows x kTileCols pixels per thread.
 //
 // Replaces, for the all-safe interior, the TPU kernels' R-haloed window
-// (neilpy_tpu/ops/pallas_scan.py:_counts_kernel and _extrema_kernel, their
-// VMEM ``win`` filled by one DMA per tile), which the per-thread bodies of
-// ladder.cuh leave to L1.
+// (neilpy_tpu/ops/pallas_scan.py:_counts_kernel, _extrema_kernel and
+// _reduced_kernel, their VMEM ``win`` filled by one DMA per tile), which
+// the per-thread bodies of ladder.cuh leave to L1.
 //
 // Where it runs: only on tiles whose whole window, the core shifted by
 // d*1 .. d*Rmax in all 8 directions, lies on the array and, for a shard
 // block (K4, K3's origin entry), inside the global raster, so every
 // direction takes the maskless step (ladder.cuh:scan_ladder_safe), no read
 // needs a test and no last step needs the edge epilogue.  The host picks
-// the tiles (ops/cuda_scan.py:tile_route): for K1, K3 and K4 the tiles
+// the tiles (ops/cuda_scan.py:tile_route): for K1, K2, K3 and K4 the tiles
 // where the block predicate (window_on, safe_directions_global_at) holds in
-// every direction, for K5 the tiles that lie wholly in the plan's interior
-// region.  They form a rectangle of tiles of a grid that starts at array
-// pixel (row0, col0) (TileFrame: K4's grid is its core, at (R, R)), which
-// the per-thread kernels leave out of their grid (unit_at below); every
-// other pixel runs the per-thread bodies with their per-32x8-block routing,
-// unchanged.  A window that does not fit in shared memory (Rmax plus the
-// column shift above the largest halo bucket, or more than the 232,448
-// bytes one block may use: exact lookup 95 and up) gets no tile, and the
-// whole grid runs the per-thread bodies.
+// every direction, for K5 (both) the tiles that lie wholly in the plan's
+// interior region.  They form a rectangle of tiles of a grid that starts at
+// array pixel (row0, col0) (TileFrame: K4's grid is its core, at (R, R)),
+// which the per-thread kernels leave out of their grid (unit_at below);
+// every other pixel runs the per-thread bodies with their per-32x8-block
+// routing, unchanged.  A window that does not fit in shared memory (Rmax
+// plus the column shift above the largest halo bucket, or more than the
+// 232,448 bytes one block may use: exact lookup 95 and up) gets no tile,
+// and the whole grid runs the per-thread bodies.
 //
-// What a tile makes of the extrema is the kernel's template parameter: the
-// counts (CountsOut: classify and two uint8 votes, at an output pitch of
-// their own, so K4 writes its core-shaped outputs) or the planes
-// (PlanesOut: K3's mx and mn, stored per direction).  The step loop is one.
+// What a tile makes of the extrema is the kernel's template parameter, its
+// epilogue: the counts (CountsOut: classify and two uint8 votes, at an
+// output pitch of their own, so K4 writes its core-shaped outputs), the
+// planes (PlanesOut: K3's mx and mn, stored per direction) or K2's fold
+// (ReducedOut, openness_reduced.cuh: each direction folded into register
+// accumulators, the openness sums, the svf sum or the ternary code stored
+// after the last).  The step loop is one.
 //
 // The window: (kTileH + 2 Rmax) rows of a pitch of kTileW + 2 kHalo floats,
 // kHalo a compile-time bucket >= Rmax + tile_shift(col0) (16, 32, 48, 64,
@@ -67,14 +72,19 @@
 // (tools/ladder_sass.py); the window is read from L2 once per tile.  K3's
 // planes add 64 B of stores per pixel (4.3 GB at 8192^2, about 1.3 ms at
 // the HBM rate), issued per direction while other CTAs run their ladders.
-// At exact lookup 50 a tile takes 104,712 bytes of shared memory, so two
-// tiles (16 warps) share an SM.
+// K2's fold adds, per pixel and direction, two atanf (openness), a divide
+// and a square root (svf) or a tangent-space compare (ternary), held in
+// registers.  At exact lookup 50 a tile takes 104,712 bytes of shared
+// memory, so two tiles (16 warps) share an SM.
 //
 // Exactness: the ratio is the maskless body's, __fmul_rn(__fsub_rn(src,
 // core), scale) from the same host table, kept with fmaxf / fminf (a NaN
 // read is skipped), and each direction votes through ladder.cuh:classify,
 // so the counts equal the per-thread bodies' and the plain version's bit
 // for bit, and the planes equal them by value (fmaxf may keep +0 for -0).
+// The reductions fold each direction by the per-thread body's own
+// function (openness_reduced.cuh:fold_direction) in the same order, so
+// they equal the per-thread bodies' bit for bit.
 
 #pragma once
 

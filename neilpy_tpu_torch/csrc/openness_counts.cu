@@ -117,7 +117,7 @@ extern "C" int openness_counts_launch(const float* Z, long long H,
 }
 
 // C entry: the dynamic shared memory, in bytes, that one tile CTA of any
-// kernel (K1, K3, K4, K5/counts) is launched with in halo bucket ``halo``
+// kernel (K1-K5) is launched with in halo bucket ``halo``
 // at ladder reach ``Rmax`` with ``K`` entries
 // (ladder_tile.cuh:tile_smem_bytes, the value launch_tile_bucket passes).
 extern "C" long long ladder_tile_smem_bytes(int halo, int Rmax, int K) {

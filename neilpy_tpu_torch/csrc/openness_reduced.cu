@@ -27,12 +27,22 @@
 // round like the plain version, and openness differs from it only by
 // atanf's own rounding under -fmad=false.
 //
-// What bounds it on this card: the ladder, as in K1 (openness_counts.cu):
-// about R loads of Z, served by L1/L2, and 4 flops per step, 8R steps per
-// pixel, instruction-issue bound.  The fold adds at most 16 atanf per
-// pixel against 400 ladder steps at R = 50, and the writes are 4 to 8 B
-// per pixel.  So the design is K1's: one thread per pixel in 32x8 blocks,
-// the directions unrolled, the two bodies of ladder.cuh.
+// What bounds it on this card: instruction issue, as K1
+// (openness_counts.cu): per pixel 8 ladders of R steps of 4 operations
+// each, plus the fold (for openness two atanf per direction: at least 56
+// operations per pixel and direction, against 200 for the ladder at exact
+// lookup 50 and 64 on the fast one); the writes are 4 to 8 B per pixel.
+// So the design is K1's.  The all-safe interior runs the tiled body of
+// ladder_tile.cuh with the fold as its epilogue (ReducedOut, built in
+// openness_reduced_tile.cu): a 32x64 core and its Rmax halo in shared
+// memory, filled once by TMA (or cp.async), 8 pixels per thread, one shared
+// load per pixel-step.  Tiles whose window lies on the raster in every
+// direction take it; the per-thread kernel below runs every other 32x8
+// block, enumerated by a 1-D grid that leaves out the tiles' rectangle
+// (ladder_tile.cuh:unit_at), with the directions unrolled and the two
+// bodies of ladder.cuh.  With no tile (the host's switch off, the route
+// mask not 0xFF, or a window too large) the per-thread kernel runs the
+// whole raster.
 
 #include "openness_reduced.cuh"
 
@@ -45,12 +55,14 @@ __global__ void __launch_bounds__(kBlockX * kBlockY)
 openness_reduced_kernel(const float* __restrict__ Z, int64_t H, int64_t W,
                         const int* __restrict__ ladder,
                         const float* __restrict__ scales, int K, int Rmax,
-                        unsigned allow, float T,
-                        float* __restrict__ out0, float* __restrict__ out1,
+                        unsigned allow, int hy0, int hy1, int hx0, int hx1,
+                        float T, float* __restrict__ out0,
+                        float* __restrict__ out1,
                         uint16_t* __restrict__ code) {
-  const DynamicRoute route{safe_directions(allow, Rmax, H, W)};
-  const int64_t c = (int64_t)blockIdx.x * kBlockX + threadIdx.x;
-  const int64_t r = (int64_t)blockIdx.y * kBlockY + threadIdx.y;
+  const UnitPos u = unit_at((W + kBlockX - 1) / kBlockX, hy0, hy1, hx0, hx1);
+  const DynamicRoute route{safe_directions_at(allow, Rmax, H, W, u.r0, u.c0)};
+  const int64_t c = u.c0 + threadIdx.x;
+  const int64_t r = u.r0 + threadIdx.y;
   if (r >= H || c >= W) return;
   const Pixel px = make_pixel(Z, H, W, r, c);
   reduced_pixel<kMode, kNegMode, kDense>(px, W, ladder, scales, K, Rmax, T,
@@ -61,12 +73,20 @@ template <int kMode, bool kNegMode, bool kDense>
 struct Launch {
   static int run(const float* Z, long long H, long long W, const int* ladder,
                  const float* scales, int K, int Rmax, unsigned allow,
+                 int halo, int ty0, int ty1, int tx0, int tx1, int tma,
                  float T, float* out0, float* out1, uint16_t* code,
                  cudaStream_t stream) {
+    const int err = reduced_tiles<kMode, kNegMode>(
+        Z, H, W, ladder, scales, K, Rmax, halo, ty0, ty1, tx0, tx1, tma, T,
+        out0, out1, code, stream);
+    if (err != 0) return err;
+    const UnitHole hole = unit_hole(halo, ty0, ty1, tx0, tx1);
+    const unsigned blocks = unit_blocks(H, W, hole);
+    if (blocks == 0) return 0;
     openness_reduced_kernel<kMode, kNegMode, kDense>
-        <<<grid_for(H, W), dim3(kBlockX, kBlockY), 0, stream>>>(
-            Z, (int64_t)H, (int64_t)W, ladder, scales, K, Rmax, allow, T,
-            out0, out1, code);
+        <<<blocks, dim3(kBlockX, kBlockY), 0, stream>>>(
+            Z, (int64_t)H, (int64_t)W, ladder, scales, K, Rmax, allow,
+            hole.y0, hole.y1, hole.x0, hole.x1, T, out0, out1, code);
     return (int)cudaGetLastError();
   }
 };
@@ -76,19 +96,23 @@ struct Launch {
 // C entry, bound with ctypes (neilpy_tpu_torch/ops/cuda_scan.py).  ``mode``
 // is 0 (openness: out0 = pos sum, out1 = neg sum), 1 (svf: out0) or 2
 // (ternary: code, with ``neg_mode`` 0 or 1); the outputs a mode does not
-// write may be null.  ``dense`` says the ladder is 1..K; ``allow`` as in
-// openness_counts_launch.  All pointers are device
-// pointers; ``stream`` is a cudaStream_t.  Launches on that stream, does
-// not synchronise, and returns cudaGetLastError(), or
-// cudaErrorInvalidValue for an unknown mode.
+// write may be null.  ``dense`` says the ladder is 1..K; ``allow`` and the
+// tile arguments (``halo``, ``ty0``, ``ty1``, ``tx0``, ``tx1``, ``tma``)
+// as in openness_counts_launch.  All pointers are device pointers;
+// ``stream`` is a cudaStream_t.  Launches on that stream, does not
+// synchronise, and returns cudaGetLastError() (or the tensor map's or the
+// shared-memory attribute's error), or cudaErrorInvalidValue for an
+// unknown mode.
 extern "C" int openness_reduced_launch(const float* Z, long long H,
                                        long long W, const int* ladder,
                                        const float* scales, int K, int Rmax,
-                                       int dense, unsigned allow,
-                                       int mode, int neg_mode, float T,
-                                       float* out0, float* out1,
+                                       int dense, unsigned allow, int halo,
+                                       int ty0, int ty1, int tx0, int tx1,
+                                       int tma, int mode, int neg_mode,
+                                       float T, float* out0, float* out1,
                                        unsigned short* code, void* stream) {
   return dispatch_mode<Launch>(mode, neg_mode, dense, Z, H, W, ladder,
-                               scales, K, Rmax, allow, T, out0, out1, code,
+                               scales, K, Rmax, allow, halo, ty0, ty1, tx0,
+                               tx1, tma, T, out0, out1, code,
                                (cudaStream_t)stream);
 }

@@ -44,12 +44,13 @@ plain versions run the same choice on any device when given ``route``,
 with ``torch.fmax`` / ``torch.fmin`` on the maskless pairs and +inf read
 off the array there, so a pair wrongly marked safe shows on the CPU.
 
-K1, K3, K4 and K5/counts run their all-safe interior on a third body, the
-tile kernel of ``csrc/ladder_tile.cuh``: a thread block owns ``TILE``
-output pixels, copies them with their Rmax halo into shared memory once
-(TMA, or cp.async where TMA cannot address the array) and runs the
-maskless step from there, 8 pixels per thread, writing counts (K1, K4,
-K5) or planes (K3).  :func:`tile_route` is the host's model of which
+Every kernel runs its all-safe interior on a third body, the tile kernel
+of ``csrc/ladder_tile.cuh``: a thread block owns ``TILE`` output pixels,
+copies them with their Rmax halo into shared memory once (TMA, or
+cp.async where TMA cannot address the array) and runs the maskless step
+from there, 8 pixels per thread, writing counts (K1, K4, K5/counts),
+planes (K3) or K2's fold (K2, K5/reduced: the directions folded into
+register accumulators).  :func:`tile_route` is the host's model of which
 tiles take it (a rectangle of whole tiles, maskless in every direction
 over its whole window, for a shard block also inside the global raster,
 and a window that fits in shared memory); every other 32x8 block runs the
@@ -168,9 +169,9 @@ BLOCK = (8, 32)
 # as the kernels did before the maskless ladder (chip_smoke.py's timing
 # baseline); the outputs do not change.
 _ALLOW_MASKLESS = 0xFF
-# the tile path of K1, K3, K4 and K5/counts (csrc/ladder_tile.cuh): off
-# sends every block to the per-thread bodies, the kernels as they were
-# before it (chip_smoke.py's same-call baseline); the outputs do not change
+# the tile path of every kernel, K1-K5 (csrc/ladder_tile.cuh): off sends
+# every block to the per-thread bodies, the kernels as they were before it
+# (chip_smoke.py's same-call baseline); the outputs do not change
 _ALLOW_TILE = True
 # (rows, cols) of the tile kernel's core: 4 x 2 thread blocks
 TILE = (32, 64)
@@ -395,9 +396,9 @@ def tile_route(H, W, Rmax, specialize, K=None, grid0=(0, 0), core=None,
 
     A tile takes it only where every direction is maskless over its whole
     window, and the window fits in shared memory.  ``specialize`` True
-    (K5/counts): the tile lies wholly in the plan's interior region
+    (K5, both): the tile lies wholly in the plan's interior region
     (``region_plan``, whole rasters only), whose blocks are safe in every
-    direction.  False (K1, K3, K4): the core shifted by d*1 .. d*Rmax lies
+    direction.  False (K1-K4): the core shifted by d*1 .. d*Rmax lies
     on the array in all 8 directions (``window_on``, what
     ``dynamic_safe`` tests per 32x8 block); for a shard block, with the
     geometry ``dynamic_safe`` takes, also inside the raster.  The grid of
@@ -705,44 +706,51 @@ def _tile_args(Z, Rmax, K, plan, **geometry):
     return (t.halo, *t.rows, *t.cols, _tile_load(Z))
 
 
+def _run_entry(Z, entry, args):
+    """Call C entry ``entry`` with ``args`` and the current stream of Z's
+    device; raise on a CUDA error.  Does not synchronise."""
+    lib = _build.load()
+    with torch.cuda.device(Z.device):
+        stream = torch.cuda.current_stream(Z.device).cuda_stream
+        err = getattr(lib, entry)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} failed: CUDA error {err}")
+
+
 def _launch(Z, entry, cellsize, lookup_pixels, fast, how_fast, *args,
             plan=False, tiles=None):
     """Launch C entry ``entry`` for raster ``Z`` with its ladder tables,
     the dense-ladder flag and the route mask ``_ALLOW_MASKLESS``, then the
     tile arguments unless ``tiles`` is None (:func:`_tile_args` with the
     geometry ``tiles``, ``{}`` for a whole raster), then K5's region plan
-    if ``plan``, then ``args``, on Z's device and current stream; raise on
-    a CUDA error.  Does not synchronise."""
-    lib = _build.load()
+    if ``plan``, then ``args``, on Z's device and current stream
+    (:func:`_run_entry`)."""
     ladder = _ladder(int(lookup_pixels), fast, how_fast)
     Rmax = ladder[-1]
     ladder_t, scales = _device_tables(float(cellsize), ladder, Z.device)
     dense = ladder == tuple(range(1, len(ladder) + 1))
     H, W = Z.shape
-    with torch.cuda.device(Z.device):
-        stream = torch.cuda.current_stream(Z.device).cuda_stream
-        err = getattr(lib, entry)(
-            Z.data_ptr(), H, W, ladder_t.data_ptr(), scales.data_ptr(),
-            len(ladder), Rmax, int(dense), _ALLOW_MASKLESS,
-            *(() if tiles is None
-              else _tile_args(Z, Rmax, len(ladder), plan, **tiles)),
-            *(region_plan(H, W, Rmax) if plan else ()), *args, stream)
-    if err != 0:
-        raise RuntimeError(f"{entry} failed: CUDA error {err}")
+    _run_entry(Z, entry, (
+        Z.data_ptr(), H, W, ladder_t.data_ptr(), scales.data_ptr(),
+        len(ladder), Rmax, int(dense), _ALLOW_MASKLESS,
+        *(() if tiles is None
+          else _tile_args(Z, Rmax, len(ladder), plan, **tiles)),
+        *(region_plan(H, W, Rmax) if plan else ()), *args))
 
 
-def _outputs(out, shape, dtype, device, name):
-    """A kernel's pair of outputs: ``out`` checked (two contiguous tensors
-    of ``dtype`` and ``shape`` on ``device``), or two new ones."""
+def _outputs(out, shape, dtype, device, name, n=2):
+    """A kernel's ``n`` outputs: ``out`` checked (``n`` contiguous tensors
+    of ``dtype`` and ``shape`` on ``device``), or ``n`` new ones."""
     if out is None:
         return tuple(torch.empty(shape, dtype=dtype, device=device)
-                     for _ in range(2))
+                     for _ in range(n))
     out = tuple(out)
-    if len(out) != 2 or any(
+    if len(out) != n or any(
             t.dtype != dtype or tuple(t.shape) != tuple(shape)
             or t.device != device or not t.is_contiguous() for t in out):
-        raise ValueError(f"{name}: out must be two contiguous {dtype} "
-                         f"tensors of shape {tuple(shape)} on {device}")
+        raise ValueError(f"{name}: out must be {n} contiguous {dtype} "
+                         f"tensor{'s' if n > 1 else ''} of shape "
+                         f"{tuple(shape)} on {device}")
     return out
 
 
@@ -871,35 +879,37 @@ directional_extrema_cuda.launches = 0
 
 
 def _reduced_cuda(Z, name, mode, cellsize, lookup_pixels, threshold_angle,
-                  neg_mode, fast, how_fast, plan):
+                  neg_mode, fast, how_fast, plan, out):
     _check_mode(mode)
     _check_cuda(Z, name)
-    dev = Z.device
     if mode == "ternary":
-        outs = (torch.empty(Z.shape, dtype=torch.uint16, device=dev),)
+        outs = _outputs(out, Z.shape, torch.uint16, Z.device, name, 1)
         ptrs = (None, None, outs[0].data_ptr())
     else:
-        outs = tuple(torch.empty(Z.shape, dtype=torch.float32, device=dev)
-                     for _ in range(2 if mode == "openness" else 1))
+        outs = _outputs(out, Z.shape, torch.float32, Z.device, name,
+                        2 if mode == "openness" else 1)
         ptrs = (outs[0].data_ptr(),
                 outs[1].data_ptr() if mode == "openness" else None, None)
     if Z.numel() == 0:
         return outs, False
     _launch(Z, f"{name[:-len('_cuda')]}_launch", cellsize, lookup_pixels,
             fast, how_fast, _MODES[mode], int(bool(neg_mode)),
-            _threshold_tangent(threshold_angle), *ptrs, plan=plan)
+            _threshold_tangent(threshold_angle), *ptrs, plan=plan, tiles={})
     return outs, True
 
 
 def openness_reduced_cuda(Z, mode, cellsize=1.0, lookup_pixels=1,
                           threshold_angle=0.0, neg_mode=True, fast=False,
-                          how_fast=20):
-    """K2 (``csrc/openness_reduced.cu``, dynamic route): the same tuple as
-    :func:`openness_reduced_torch`.  Same input rules, stream and counter
+                          how_fast=20, out=None):
+    """K2 (``csrc/openness_reduced.cu``, dynamic route, tile path inside):
+    the same tuple as :func:`openness_reduced_torch`.  ``out``: the tuple
+    to write, contiguous tensors of Z's shape on its device: two float32
+    for ``'openness'``, one float32 for ``'svf'``, one uint16 for
+    ``'ternary'``.  Same input rules, stream and counter
     (``openness_reduced_cuda.launches``) as :func:`openness_counts_cuda`."""
     outs, launched = _reduced_cuda(
         Z, "openness_reduced_cuda", mode, cellsize, lookup_pixels,
-        threshold_angle, neg_mode, fast, how_fast, plan=False)
+        threshold_angle, neg_mode, fast, how_fast, plan=False, out=out)
     openness_reduced_cuda.launches += launched
     return outs
 
@@ -909,15 +919,15 @@ openness_reduced_cuda.launches = 0
 
 def openness_reduced_plan_cuda(Z, mode, cellsize=1.0, lookup_pixels=1,
                                threshold_angle=0.0, neg_mode=True,
-                               fast=False, how_fast=20):
+                               fast=False, how_fast=20, out=None):
     """K5 for the fused reductions (``csrc/openness_reduced_plan.cu``):
-    K2's tuple through the static region plan (:func:`region_plan`).  Same
-    input rules, stream and counter
-    (``openness_reduced_plan_cuda.launches``) as
-    :func:`openness_counts_cuda`."""
+    K2's tuple through the static region plan (:func:`region_plan`), the
+    tiles of the plan's interior on the tile path.  Same input rules,
+    ``out``, stream and counter (``openness_reduced_plan_cuda.launches``)
+    as :func:`openness_reduced_cuda`."""
     outs, launched = _reduced_cuda(
         Z, "openness_reduced_plan_cuda", mode, cellsize, lookup_pixels,
-        threshold_angle, neg_mode, fast, how_fast, plan=True)
+        threshold_angle, neg_mode, fast, how_fast, plan=True, out=out)
     openness_reduced_plan_cuda.launches += launched
     return outs
 

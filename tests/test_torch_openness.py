@@ -385,6 +385,45 @@ def test_import_needs_no_jax_for_the_openness_family():
                    timeout=120)
 
 
+def test_fold_bound_counts_the_tpu_kernels_atan():
+    """``chip_smoke.py``'s bound of K2 and K5/reduced counts the fold from
+    the TPU kernel's own body (``pallas_scan.py:reduce_dir``):
+    ``_atan_f32`` at the number of equations of its jaxpr less its
+    multiplies whose one use is an add or a subtract (each such pair one
+    FMA), openness two of them and 8 more operations per pixel and
+    direction, added to the ladder's operations."""
+    import jax
+    import jax.extend.core
+    import jax.numpy as jnp
+    if str(REPO) not in sys.path:
+        sys.path.insert(0, str(REPO))
+    import chip_smoke
+    x = jnp.zeros((8, 128), jnp.float32)
+    eqns = jax.make_jaxpr(jps._atan_f32)(x).jaxpr.eqns
+    uses = {}
+    for e in eqns:
+        for v in e.invars:
+            if not isinstance(v, jax.extend.core.Literal):
+                uses.setdefault(v, []).append(e.primitive.name)
+    fmas = sum(e.primitive.name == "mul"
+               and uses.get(e.outvars[0]) in (["add"], ["sub"])
+               for e in eqns)
+    assert chip_smoke.ATAN_OPS == len(eqns)
+    assert chip_smoke.ATAN_FMAS == fmas
+    assert chip_smoke.FOLD_OPS["openness", True] == (
+        2 * (chip_smoke.ATAN_OPS - chip_smoke.ATAN_FMAS) + 8)
+    px = 8192 * 8192
+    steps = 50 * 8 * px
+    ladder_only, side = chip_smoke.bound(steps, 12 * px)
+    with_fold, side_fold = chip_smoke.bound(
+        steps, 12 * px, chip_smoke.fold_ops("openness", px))
+    assert side == side_fold == "operations"
+    assert with_fold == pytest.approx(
+        ladder_only + 56 * 8 * px / chip_smoke.PEAK_F32_OPS * 1e3)
+    assert chip_smoke.fold_ops("ternary", 1, neg_mode=False) == 8 * 11
+    assert chip_smoke.fold_ops("svf", 1, neg_mode=False) == 8 * 5
+
+
 # ----------------------------------------------------------------------
 # kernels against their plain versions, on the card only
 # ----------------------------------------------------------------------

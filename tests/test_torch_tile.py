@@ -1,6 +1,6 @@
-"""The tile path of K1, K5/counts, K3 and K4 (``csrc/ladder_tile.cuh``) on
-the CPU: its host mirror ``cuda_scan.tile_route`` held against brute force
-in numpy.
+"""The tile path of every kernel, K1, K2, K3, K4 and K5 for the counts and
+the reductions (``csrc/ladder_tile.cuh``), on the CPU: its host mirror
+``cuda_scan.tile_route`` held against brute force in numpy.
 
 - soundness: every read of every ladder step of every pixel of a tile CTA
   lies in the tile's shared-memory window and on the raster, on the
@@ -14,7 +14,12 @@ in numpy.
 - shared memory stays within the card's 232,448 bytes, and a lookup
   beyond it gets no tile; at 8192^2, lookup 50, >= 95% of the pixels lie
   in tile CTAs;
-- the tile switches change neither the route table nor a CPU output;
+- the tile switches change neither the route table nor a CPU output
+  (counts and each reduction);
+- the reduced wrappers hand their C entries the tile arguments of
+  ``_tile_args`` (K2 the dynamic tiles, K5/reduced the plan's interior)
+  in the entry's order, and zeros with the tile path or a direction of
+  the route mask off;
 - shard blocks (K4 on its core's grid at (R, R), K3's origin entry on the
   haloed block), the blocks of 1x1, 2x2 and 2x3 meshes over three rasters
   at lookups 1, 12, 24 and 50 on both ladders: every read in the window,
@@ -26,9 +31,12 @@ in numpy.
   lookup 50; the haloed blocks TMA can load.
 
 The kernels themselves run on the card only: the ``cuda`` tests skip here
-and ``chip_smoke.py`` holds the four kernels, tile path on and off, against
+and ``chip_smoke.py`` holds every kernel, tile path on and off, against
 the plain version.
 """
+
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -36,6 +44,12 @@ import torch
 
 from neilpy_tpu_torch.core.shift import OFFSETS
 from neilpy_tpu_torch.ops import cuda_scan as cs
+
+REPO = Path(__file__).resolve().parents[1]
+if str(REPO) not in sys.path:
+    sys.path.insert(0, str(REPO))
+# K2's mode variants, (mode, keyword arguments), as chip_smoke.py runs them
+from chip_smoke import REDUCED_VARIANTS  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -187,13 +201,23 @@ def test_smem_cap_and_tile_share(spec, fast):
     assert 2 * t.smem_bytes <= 228 * 1024
 
 
-def test_tile_switches_change_no_route_or_output():
+def _cpu_outputs(Z, output, **kw):
+    """The CPU output ``output`` names: the counts or a reduction."""
+    if output == "counts":
+        return cs.openness_counts(Z, threshold_angle=1.0, **kw)
+    mode, extra = REDUCED_VARIANTS[output]
+    return cs.openness_reduced(Z, mode, **kw, **extra)
+
+
+@pytest.mark.parametrize("output", ["counts", *REDUCED_VARIANTS])
+def test_tile_switches_change_no_route_or_output(output):
     """The tile switch and the route mask reach only the kernels' tile
     arguments: the route table (the per-thread blocks' routing), the CPU
-    outputs and the 98.9% maskless share at 8192^2 stay as they were."""
+    outputs (the counts, each reduction) and the 98.9% maskless share at
+    8192^2 stay as they were."""
     Z = torch.from_numpy(np.random.default_rng(5).normal(size=(257, 389))
                          .cumsum(0).cumsum(1).astype(np.float32))
-    kw = dict(cellsize=2.0, lookup_pixels=12, threshold_angle=1.0)
+    kw = dict(cellsize=2.0, lookup_pixels=12)
     saved = cs._ALLOW_TILE
     try:
         outs = []
@@ -201,7 +225,7 @@ def test_tile_switches_change_no_route_or_output():
             cs._ALLOW_TILE = on
             outs.append((cs.route_table(Z, 12, specialize=True),
                          cs.route_table(Z, 12, specialize=False),
-                         *cs.openness_counts(Z, **kw)))
+                         *_cpu_outputs(Z, output, **kw)))
             args = cs._tile_args(Z, 12, 12, True)
             assert (args[0] == 16 and args[5] == 0) if on else not any(args)
     finally:
@@ -450,6 +474,68 @@ def test_shard_tile_args_follow_the_switches():
             setattr(cs, name, saved)
 
 
+@pytest.mark.parametrize("switch", [None, ("_ALLOW_TILE", False),
+                                    ("_ALLOW_MASKLESS", 0)])
+@pytest.mark.parametrize("variant", list(REDUCED_VARIANTS))
+@pytest.mark.parametrize("plan", [False, True])
+def test_reduced_wrappers_pass_the_tile_arguments(monkeypatch, plan, variant,
+                                                  switch):
+    """What K2 (``plan`` False) and K5/reduced hand their C entries, caught
+    at ``cuda_scan._run_entry``: the head (raster, ladder, route mask),
+    then ``_tile_args(..., plan)``, then K5's region plan, then the mode,
+    ``neg_mode``, the threshold's tangent and the mode's output pointers,
+    as many as the entry's ctypes declaration takes; the tile arguments
+    are zeros with the tile path off or the route mask not 0xFF.  TMA on a
+    900-wide raster, cp.async on a 771-wide one."""
+    from neilpy_tpu_torch import _build
+    mode, extra = REDUCED_VARIANTS[variant]
+    fn = cs.openness_reduced_plan_cuda if plan else cs.openness_reduced_cuda
+    entry = ("openness_reduced_plan_launch" if plan
+             else "openness_reduced_launch")
+    calls = []
+    monkeypatch.setattr(cs, "_check_cuda", lambda Z, name: None)
+    monkeypatch.setattr(cs, "_run_entry",
+                        lambda Z, name, args: calls.append((name, args)))
+    monkeypatch.setattr(fn, "launches", 0)
+    if switch is not None:
+        monkeypatch.setattr(cs, *switch)
+    for shape, lookup, fast, tma in (((600, 900), 50, False, 1),
+                                     ((600, 900), 50, True, 1),
+                                     ((515, 771), 12, False, 0)):
+        Z = torch.zeros(shape)
+        outs = fn(Z, mode, cellsize=2.0, lookup_pixels=lookup, fast=fast,
+                  **extra)
+        name, args = calls.pop()
+        assert name == entry
+        assert len(args) + 1 == len(_build.entry_argtypes()[entry])
+        ladder = cs._ladder(lookup, fast)
+        Rmax, K = ladder[-1], len(ladder)
+        dense = ladder == tuple(range(1, K + 1))
+        assert args[:9] == (Z.data_ptr(), *shape, args[3], args[4], K, Rmax,
+                            int(dense), cs._ALLOW_MASKLESS)
+        tile = args[9:15]
+        assert tile == cs._tile_args(Z, Rmax, K, plan)
+        if switch is None:
+            want = cs.tile_route(*shape, Rmax, plan, K)
+            assert tile == (want.halo, *want.rows, *want.cols, tma)
+            assert want.n_tiles > 0
+        else:
+            assert tile == (0,) * 6
+        rest = args[15:]
+        if plan:
+            assert rest[:6] == cs.region_plan(*shape, Rmax)
+            rest = rest[6:]
+        neg = extra.get("neg_mode", True)
+        assert rest[:3] == (cs._MODES[mode], int(neg),
+                            cs._threshold_tangent(
+                                extra.get("threshold_angle", 0.0)))
+        # (out0, out1, code): the pointers the mode writes, None for the rest
+        p = [t.data_ptr() for t in outs]
+        assert rest[3:] == {"openness": (*p, None), "svf": (*p, None, None),
+                            "ternary": (None, None, *p)}[mode]
+    assert fn.launches == 3
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
@@ -555,5 +641,57 @@ def test_k4_tile_path_matches_plain_on_card(card, shape, lookup, fast):
                     torch.cuda.synchronize()
                     assert all(torch.equal(a, b)
                                for a, b in zip(got, plain))
+    finally:
+        cs._ALLOW_TILE = saved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", [False, True])
+@pytest.mark.parametrize("shape,lookup,fast", [
+    ((600, 900), 12, False), ((515, 771), 50, True), ((1000, 1537), 50,
+                                                      False)])
+def test_reduced_tile_path_matches_plain_on_card(card, shape, lookup, fast,
+                                                 plan):
+    """K2 (``plan`` False) and K5/reduced, every mode variant, tile path on
+    and off, into outputs pre-filled with a value no launch writes (NaN
+    for the sums, 0xFFFF for the codes): the two launches equal each other
+    bit for bit, the codes equal the plain version, openness within 5e-5
+    degrees (+inf at the same pixels) and skyview within 1e-6 of it."""
+    Z = _nan_raster(shape, 12)
+    Zd = torch.from_numpy(Z).to(card)
+    fn = cs.openness_reduced_plan_cuda if plan else cs.openness_reduced_cuda
+    saved = cs._ALLOW_TILE
+    try:
+        for mode, extra in REDUCED_VARIANTS.values():
+            kw = dict(cellsize=2.0, lookup_pixels=lookup, fast=fast, **extra)
+            plain = cs.openness_reduced_torch(Zd, mode, **kw)
+            got = []
+            for on in (True, False):
+                cs._ALLOW_TILE = on
+                if mode == "ternary":
+                    out = (torch.full(shape, 0xFFFF, dtype=torch.int32,
+                                      device=card).to(torch.uint16),)
+                else:
+                    out = tuple(torch.full(shape, float("nan"), device=card)
+                                for _ in range(len(plain)))
+                got.append(fn(Zd, mode, out=out, **kw))
+                torch.cuda.synchronize()
+            for a, b in zip(*got):
+                if mode == "ternary":
+                    assert torch.equal(a.int(), b.int())
+                else:
+                    assert torch.equal(a.view(torch.int32),
+                                       b.view(torch.int32))
+            for a, b in zip(got[0], plain):
+                if mode == "ternary":
+                    assert torch.equal(a.int(), b.int())
+                    continue
+                if mode == "openness":
+                    a, b = a * cs._DEG_PER_SUM, b * cs._DEG_PER_SUM
+                assert not a.isnan().any()
+                inf = a.isinf()
+                assert torch.equal(inf, b.isinf())
+                tol = 5e-5 if mode == "openness" else 1e-6
+                assert float((a[~inf] - b[~inf]).abs().max()) <= tol
     finally:
         cs._ALLOW_TILE = saved
