@@ -71,6 +71,30 @@ bound (operations at the f32 instruction rate or bytes at the HBM rate,
 whichever is larger; for K2 and K5/reduced the operations of the fold
 too, counted from the TPU kernel's body).
 
+Then the SMRF slice, which runs plain torch ops on the card and none of
+K1-K5 (each phase raises on failure):
+
+- ``smrf_path``: ``smrf`` on a seeded 5M-point ``lidar_tile`` (2000 m x
+  2000 m of UTM-like coordinates, rolling ground, ~10% box buildings,
+  ~10% canopy) at cellsize 1 (~2003^2 cells, ~29% empty), windows 18,
+  the published thresholds: fast and exact labels agree on >= 99.9% of
+  the points, >= 90% of building points are objects and >= 90% of bare
+  ground is kept, ``chunk_points=1_999_999`` gives the one-shot labels
+  bit for bit; each stage timed with CUDA events (CG iterations and host
+  syncs per fill), the host legs alone, and one ``torch.profiler`` pass
+  (device idle share, launches; also of one K-cycle application and one
+  spline coefficient set);
+- ``inpaint_scale``: ``inpaint_nans_by_springs`` at 4096^2 with a 30%
+  contiguous hole, float32, within 1e-3 of the float64 fill at tol=1e-12;
+- ``smrf_oracle``: ``precision='exact'`` on the card bit-identical to the
+  script's own f64 scipy oracle (a copy of ``tests/reference_impls.py``'s
+  on the port's ``disk`` and ``bin_points``) on tests/test_smrf.py's
+  building scene, and at 200k points over 400 m (windows 12) equal to the
+  port's CPU exact labels, cells differing only at threshold ties;
+- ``las_path``: ``write_las`` the 5M-point cloud, ``smrf_las`` it, read it
+  back: classes equal ``smrf``'s labels on the decoded points, every byte
+  but the classification bits unchanged.
+
 Tolerances, kernel against plain version: counts, classes, extrema and
 ternary codes exact; openness within 5e-5 degrees, with +inf (a pixel
 that saw nothing) at the same pixels; skyview factor within 1e-6.
@@ -1569,6 +1593,471 @@ def kernel_table(cuda_scan, res, launches, max_err, Zd, blocks):
     return kernels
 
 
+# ----------------------------------------------------------------------
+# the SMRF slice (plain torch ops on the card; none of K1-K5)
+# ----------------------------------------------------------------------
+def lidar_tile(seed, n, side, x0=500000.0, y0=4200000.0):
+    """A synthetic lidar tile: ``n`` points uniform over ``side`` x
+    ``side`` metres of UTM-like coordinates, on seeded rolling ground
+    (slopes under ~0.12), about 10% of them on flat-roofed box buildings
+    10-24 m wide and 4-15 m high, about 10% scattered canopy returns
+    2-20 m above the ground, and 5 cm of noise.  Returns (x, y, z,
+    building, canopy)."""
+    rng = np.random.default_rng(seed)
+    u = rng.uniform(0, side, n)
+    v = rng.uniform(0, side, n)
+    k = 2 * np.pi / side
+    z = (100 + 0.01 * side * (np.sin(1.3 * k * u + 0.7) * np.cos(0.9 * k * v)
+                              + 0.5 * np.sin(2.3 * k * v)) + 0.02 * u)
+    cells = int(np.ceil(side))
+    roof = np.zeros((cells, cells), np.float32)
+    nb = int(0.1 * side * side / 300)
+    for cx, cy, hw, hh, ht in zip(rng.uniform(0, side, nb),
+                                  rng.uniform(0, side, nb),
+                                  rng.uniform(5, 12, nb),
+                                  rng.uniform(5, 12, nb),
+                                  rng.uniform(4, 15, nb)):
+        roof[max(int(cy - hh), 0):int(cy + hh),
+             max(int(cx - hw), 0):int(cx + hw)] = ht
+    height = roof[np.minimum(v.astype(np.int64), cells - 1),
+                  np.minimum(u.astype(np.int64), cells - 1)]
+    building = height > 0
+    canopy = ~building & (rng.random(n) < 0.11)
+    z = (z + height + np.where(canopy, rng.uniform(2, 20, n), 0.0)
+         + rng.normal(0, 0.05, n))
+    return x0 + u, y0 + v, z, building, canopy
+
+
+# The f64 scipy SMRF oracle: a copy of tests/reference_impls.py:171-288
+# (np_progressive_filter, np_spring_inpaint's direct solve,
+# np_ladder_margin, np_smrf) on the port's disk and bin_points, since that
+# module reaches the JAX package for them.
+def np_progressive_filter(Z, windows, cellsize=1, slope_threshold=.15):
+    import scipy.ndimage as ndi
+    from neilpy_tpu_torch.core.codes import disk
+    last = Z.copy()
+    is_obj = np.zeros(Z.shape, dtype=bool)
+    thresholds = slope_threshold * (np.asarray(windows) * cellsize)
+    for i, w in enumerate(np.atleast_1d(windows)):
+        opened = ndi.grey_erosion(last, footprint=disk(w))
+        opened = ndi.grey_dilation(opened, footprint=disk(w))
+        is_obj |= (last - opened) > thresholds[i]
+        last = opened.copy()
+    return is_obj
+
+
+def np_spring_inpaint(A):
+    """D'Errico method-4 springs, solved exactly: the normal equations of
+    the spring least-squares problem by a direct sparse factorisation."""
+    from scipy import sparse
+    from scipy.sparse import linalg
+    m, n = A.shape
+    nanmat = np.isnan(A)
+    nan_list = np.flatnonzero(nanmat)
+    known_list = np.flatnonzero(~nanmat)
+    r, c = np.unravel_index(nan_list, (m, n))
+    offsets = np.array([[0, 1], [0, -1], [-1, 0], [1, 0]])
+    nbrs = np.vstack([np.vstack((r + o[0], c + o[1])).T for o in offsets])
+    springs = np.tile(nan_list, 4)
+    good = (np.all(nbrs >= 0, 1)) & (nbrs[:, 0] < m) & (nbrs[:, 1] < n)
+    nbr_flat = np.ravel_multi_index((nbrs[good, 0], nbrs[good, 1]), (m, n))
+    springs = np.sort(np.vstack((springs[good], nbr_flat)).T, axis=1)
+    springs = np.unique(springs, axis=0)
+    ns = springs.shape[0]
+    i = np.tile(np.arange(ns), 2)
+    data = np.hstack((np.ones(ns), -np.ones(ns)))
+    S = sparse.coo_matrix((data, (i, springs.T.ravel())),
+                          (ns, m * n)).tocsr()
+    Su = S[:, nan_list]
+    rhs = -S[:, known_list] * A[np.unravel_index(known_list, (m, n))]
+    res = linalg.spsolve((Su.T @ Su).tocsc(), Su.T @ rhs)
+    B = A.copy()
+    B[np.unravel_index(nan_list, (m, n))] = res
+    return B
+
+
+def np_ladder_margin(Zi, windows, cellsize=1, slope_threshold=.15):
+    """Per-cell minimum |(last - opened) - threshold| across the opening
+    ladder: cells at ~0 are f64 threshold ties."""
+    import scipy.ndimage as ndi
+    from neilpy_tpu_torch.core.codes import disk
+    last = Zi.copy()
+    margin = np.full(Zi.shape, np.inf)
+    thresholds = slope_threshold * (np.asarray(windows) * cellsize)
+    for i, w in enumerate(np.atleast_1d(windows)):
+        opened = ndi.grey_erosion(last, footprint=disk(w))
+        opened = ndi.grey_dilation(opened, footprint=disk(w))
+        margin = np.minimum(margin,
+                            np.abs((last - opened) - thresholds[i]))
+        last = opened.copy()
+    return margin
+
+
+def np_smrf(x, y, z, cellsize, windows, slope_threshold,
+            elevation_threshold, elevation_scaler, low_filter_slope=5,
+            return_margin=False):
+    """The full f64 SMRF oracle from scipy building blocks (groupby-style
+    binning, direct-solve springs, scipy disk opening ladder, FITPACK
+    RectBivariateSpline lift; reference neilpy.py:1685-1808)."""
+    from scipy.interpolate import RectBivariateSpline
+    from neilpy_tpu_torch.ops.pointgrid import bin_points
+
+    windows = np.arange(windows) + 1 if np.isscalar(windows) else windows
+    flat, valid, (ny, nx), t = bin_points(x, y, cellsize=cellsize)
+    z64 = np.asarray(z, float)
+    Zmin = np.full(ny * nx, np.inf)
+    np.minimum.at(Zmin, flat[valid], z64[valid])
+    Zmin[np.isinf(Zmin)] = np.nan
+    Zmin = Zmin.reshape(ny, nx)
+    empty = np.isnan(Zmin)
+    Zmin = np_spring_inpaint(Zmin)
+    low = np_progressive_filter(-Zmin, [1], cellsize, low_filter_slope)
+    obj = np_progressive_filter(Zmin, windows, cellsize, slope_threshold)
+    obj = obj | empty | low
+    if return_margin:
+        margin = np.minimum(
+            np_ladder_margin(Zmin, windows, cellsize, slope_threshold),
+            np_ladder_margin(-Zmin, [1], cellsize, low_filter_slope))
+    Zpro = Zmin.copy()
+    Zpro[obj] = np.nan
+    Zpro = np_spring_inpaint(Zpro)
+    c, r = (~t) * (np.asarray(x, float), np.asarray(y, float))
+    ev = RectBivariateSpline(np.arange(ny) + .5, np.arange(nx) + .5,
+                             Zpro).ev(r, c)
+    gy, gx = np.gradient(Zpro, cellsize)
+    sv = RectBivariateSpline(np.arange(ny) + .5, np.arange(nx) + .5,
+                             np.sqrt(gy ** 2 + gx ** 2)).ev(r, c)
+    req = elevation_threshold + elevation_scaler * sv
+    if return_margin:
+        return np.abs(ev - z64) > req, obj, margin
+    return np.abs(ev - z64) > req, obj
+
+
+SMRF_POINTS = 5_000_000        # bench.py bench_gridding's cloud: 5M points
+SMRF_SIDE = 2000.0             # over 2000 m x 2000 m; cellsize 1 -> ~2003^2
+SMRF_CHUNK = 1_999_999         # the streamed point stage: 3 chunks
+# the published parameters bench.py's bench_smrf uses
+SMRF_KW = dict(cellsize=1, windows=18, slope_threshold=.15,
+               elevation_threshold=.5, elevation_scaler=1.25)
+INPAINT_SIDE = 4096            # bench.py bench_inpaint
+MID_POINTS, MID_SIDE, MID_WINDOWS = 200_000, 400.0, 12
+TIE_MARGIN = 1e-8              # tests/test_smrf.py: a differing cell is a tie
+
+
+class StageClock:
+    """The ``mark`` hook of ``pipelines/smrf._smrf_run``: after each stage
+    a CUDA event and the host clock, with the CG counts the springs fills
+    report."""
+
+    def __init__(self):
+        self.marks = []
+        self("start")
+
+    def __call__(self, stage, **info):
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        self.marks.append((stage, event, time.perf_counter(), info))
+
+    def stages(self):
+        torch.cuda.synchronize()
+        return {name: dict(device_ms=e0.elapsed_time(e1),
+                           host_ms=(h1 - h0) * 1e3, **info)
+                for (_, e0, h0, _), (name, e1, h1, info)
+                in zip(self.marks, self.marks[1:])}
+
+
+def device_profile(call):
+    """One ``torch.profiler`` pass (CUDA activity) of ``call``: host-clock
+    wall ms (ending in a synchronise), device ms (the union of the
+    kernels', copies' and fills' spans), idle share, kernel launches and
+    copies.  The profiler's first window in a process carries its start-
+    up, so a small window runs first."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts):
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans, kernels = [], 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        spans.append((e.start_ns(), e.start_ns() + e.duration_ns()))
+        kernels += not e.name().startswith(("Memcpy", "Memset"))
+    busy, end = 0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            busy, end = busy + b - a, b
+        elif b > end:
+            busy, end = busy + b - end, b
+    return out, dict(wall_ms=wall, device_ms=busy / 1e6,
+                     idle_share=1.0 - busy / 1e6 / wall, launches=kernels,
+                     copies_and_fills=len(spans) - kernels)
+
+
+def smrf_labels_check(pts, building, canopy, what):
+    """>= 90% of building points objects, >= 90% of bare ground kept."""
+    pts = pts.cpu().numpy()
+    flagged = float(pts[building].mean())
+    kept = float(1 - pts[~building & ~canopy].mean())
+    check(flagged >= 0.9, f"{what}: {flagged:.4f} of building points "
+                          "flagged (need >= 0.9)")
+    check(kept >= 0.9, f"{what}: {kept:.4f} of bare ground kept "
+                       "(need >= 0.9)")
+    return flagged, kept
+
+
+def smrf_path(ntt, cuda_scan, dev):
+    """Phase 8: SMRF on a 5M-point synthetic tile (``lidar_tile``) at
+    cellsize 1 (about 2003^2 cells, ~29% empty), windows 18 and the
+    published thresholds: the fast call one-shot (the counted path run),
+    the same call through its stage hook (CUDA events per stage, CG
+    iterations and host syncs per fill), exact, the point stage streamed
+    in chunks, the host legs alone, and a ``torch.profiler`` pass."""
+    from neilpy_tpu_torch.ops import inpaint, pointgrid, spline
+    from neilpy_tpu_torch.pipelines.smrf import _smrf_run
+    x, y, z, building, canopy = lidar_tile(5, SMRF_POINTS, SMRF_SIDE)
+    n = x.size
+    kw = dict(SMRF_KW, device=dev)
+    xs, ys, zs, *_ = lidar_tile(6, MID_POINTS, MID_SIDE)  # warm-up
+    ntt.smrf(xs, ys, zs, **kw)
+    torch.cuda.synchronize()
+
+    reset_counts(cuda_scan)
+    t0 = time.perf_counter()
+    Zpro, t, cells, pts = ntt.smrf(x, y, z, chunk_points=n, **kw)
+    torch.cuda.synchronize()
+    wall_fast = time.perf_counter() - t0
+    counts = read_counts(cuda_scan)
+    check(not any(counts.values()),
+          f"the SMRF path launched {counts}: it runs none of K1-K5")
+
+    clock = StageClock()
+    run_kw = dict(SMRF_KW, low_filter_slope=5, low_outlier_fill=False,
+                  return_extras=False, chunk_points=n, device=dev)
+    staged = _smrf_run(x, y, z, precision="fast", mark=clock,
+                                **run_kw)
+    stages = clock.stages()
+    check(torch.equal(staged[3], pts) and torch.equal(staged[2], cells),
+          "the stage-timed fast call differs from the untimed one")
+
+    t0 = time.perf_counter()
+    Zx, tx, cells_x, pts_x = ntt.smrf(x, y, z, chunk_points=n,
+                                      precision="exact", **kw)
+    torch.cuda.synchronize()
+    wall_exact = time.perf_counter() - t0
+
+    streamed = ntt.smrf(x, y, z, chunk_points=SMRF_CHUNK, **kw)[3]
+    check(torch.equal(streamed, pts),
+          f"chunk_points={SMRF_CHUNK} labels differ from the one-shot call")
+
+    ny, nx = Zpro.shape
+    side = SMRF_SIDE + 3  # the frame's half-cell margins and snapping
+    check(tuple(t) == tuple(tx) and Zx.shape == (ny, nx)
+          and abs(ny - side) <= 2 and abs(nx - side) <= 2,
+          f"grid {ny}x{nx}: expected about {side:.0f}^2, one frame")
+    for name, a, dt in (("fast", Zpro, torch.float32),
+                        ("exact", Zx, torch.float64)):
+        check(a.is_cuda and a.dtype == dt and bool(torch.isfinite(a).all()),
+              f"{name} Zpro: device, dtype or a non-finite cell")
+    for name, a in (("fast", pts), ("exact", pts_x)):
+        check(a.is_cuda and a.dtype == torch.bool and a.shape == (n,),
+              f"{name} labels: device, dtype or shape")
+    agree = float((pts == pts_x).double().mean())
+    check(agree >= 0.999, f"fast and exact labels agree on {agree:.5f} of "
+                          "the points (need >= 0.999)")
+    cells_agree = float((cells == cells_x).double().mean())
+    flagged, kept = smrf_labels_check(pts, building, canopy, "fast")
+    flagged_x, kept_x = smrf_labels_check(pts_x, building, canopy, "exact")
+
+    # the host legs alone, and the copies, at this cloud's size
+    legs = {}
+    h0 = time.perf_counter()
+    flat, valid, _, _ = pointgrid.bin_points(x, y, cellsize=1)
+    legs["host_f64_binning_ms"] = (time.perf_counter() - h0) * 1e3
+    h0 = time.perf_counter()
+    c64, r64 = (~t) * (x, y)
+    legs["host_inverse_affine_ms"] = (time.perf_counter() - h0) * 1e3
+    z32 = z.astype(np.float32)
+    r32, c32 = r64.astype(np.float32), c64.astype(np.float32)
+    torch.cuda.synchronize()
+    h0 = time.perf_counter()
+    dev_in = [torch.from_numpy(a).to(dev) for a in (flat, valid, z32)]
+    torch.cuda.synchronize()
+    legs["h2d_grid_inputs_ms"] = (time.perf_counter() - h0) * 1e3
+    h0 = time.perf_counter()
+    grid = pointgrid.scatter_reduce(*dev_in, ny * nx, bin_type="min")
+    torch.cuda.synchronize()
+    legs["device_scatter_ms"] = (time.perf_counter() - h0) * 1e3
+    h0 = time.perf_counter()
+    dev_pts = [torch.from_numpy(a).to(dev) for a in (r32, c32, z32)]
+    torch.cuda.synchronize()
+    legs["h2d_points_ms"] = (time.perf_counter() - h0) * 1e3
+    h0 = time.perf_counter()
+    back = pts.cpu().numpy()
+    legs["d2h_labels_ms"] = (time.perf_counter() - h0) * 1e3
+    h0 = time.perf_counter()
+    Zpro.cpu().numpy()
+    legs["d2h_zpro_ms"] = (time.perf_counter() - h0) * 1e3
+    check(int(torch.isnan(grid).sum()) > 0 and back.shape == (n,),
+          "host-leg replay")
+    empty_share = float(torch.isnan(grid).double().mean())
+    del dev_in, dev_pts, grid
+
+    # one torch.profiler pass of the fast call, and the launches of one
+    # preconditioner application and one spline coefficient set
+    _, prof = device_profile(lambda: ntt.smrf(x, y, z, chunk_points=n, **kw))
+    unknown = torch.isnan(pointgrid.create_dem(
+        x, y, z, cellsize=1, bin_type="min", device=dev)[0]).float()
+    levels = inpaint._build_levels(unknown, inpaint._degree(
+        unknown.shape, device=dev))
+    r = torch.randn(unknown.shape, device=dev) * unknown
+    _, kcycle = device_profile(lambda: inpaint._kcycle(r, levels, 0))
+    _, coeffs = device_profile(lambda: spline.spline_coefficients_2d(Zpro))
+    emit(phase="smrf_path", points=n, grid=[ny, nx],
+         empty_cell_share=empty_share, windows=SMRF_KW["windows"],
+         launches_by_kernel=counts, wall_s={"fast": wall_fast,
+                                            "exact": wall_exact},
+         stages_fast=stages, host_legs=legs,
+         profile_fast=prof, kcycle_levels=len(levels),
+         kcycle_application=kcycle, spline_coefficient_set=coeffs,
+         fast_exact_label_agreement=agree,
+         fast_exact_cell_agreement=cells_agree,
+         building_flagged={"fast": flagged, "exact": flagged_x},
+         ground_kept={"fast": kept, "exact": kept_x},
+         object_share=float(pts.double().mean()))
+    return x, y, z
+
+
+def inpaint_scale(ntt, dev):
+    """Phase 9: ``inpaint_nans_by_springs`` at 4096^2 with bench.py
+    bench_inpaint's 30% contiguous hole, float32 on the card (after a
+    warm-up), against the port's own float64 card solve at tol=1e-12."""
+    H = W = INPAINT_SIDE
+    rng = np.random.default_rng(2)
+    Z = rng.normal(size=(H, W)).astype(np.float32)
+    Z = np.cumsum(Z, axis=0) + np.cumsum(Z, axis=1)
+    Z[900 * H // 4096:3200 * H // 4096, 800 * W // 4096:3000 * W // 4096] = \
+        np.nan
+    Zd = torch.from_numpy(Z).to(dev)
+    ntt.inpaint_nans_by_springs(Zd[H // 4:H // 4 + 512, W // 4:W // 4 + 512])
+    runs = {}
+    for name, A, kw in (("f32", Zd, {}),
+                        ("f64", Zd.double(), dict(tol=1e-12,
+                                                  maxiter=100_000))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, info = ntt.inpaint_nans_by_springs(A, return_info=True, **kw)
+        torch.cuda.synchronize()
+        runs[name] = (out, dict(info, ms=(time.perf_counter() - t0) * 1e3))
+        check(info["converged"] and bool(torch.isfinite(out).all()),
+              f"{name} fill: not converged or non-finite")
+    err = float((runs["f32"][0].double() - runs["f64"][0]).abs().max())
+    check(err <= 1e-3, f"f32 fill vs the f64 fill: max |diff| {err} above "
+                       "1e-3")
+    known = ~torch.isnan(Zd)
+    check(torch.equal(runs["f32"][0][known], Zd[known]),
+          "the fill changed a known cell")
+    emit(phase="inpaint_scale", shape=[H, W],
+         hole_share=float((~known).double().mean()),
+         f32=runs["f32"][1], f64_tol_1e12=runs["f64"][1],
+         max_abs_diff_f32_vs_f64=err)
+
+
+def smrf_oracle(ntt, dev):
+    """Phase 10: the card's ``precision='exact'`` against the f64 scipy
+    oracle, bit for bit, on tests/test_smrf.py:140-156's building scene;
+    then on a mid-size tile (200k points, 400 m, windows 12) the card's
+    exact labels against the port's own CPU exact ones: equal point
+    labels, any differing cell a threshold tie (oracle margin < 1e-8)."""
+    rng = np.random.default_rng(12345)
+    n = 4000
+    x = rng.uniform(0, 50, n)
+    y = rng.uniform(0, 40, n)
+    z = rng.normal(0, 0.1, n) + 0.02 * x
+    z = z + 6.0 * ((x > 15) & (x < 25) & (y > 10) & (y < 25))
+    ref_pts, ref_obj = np_smrf(x, y, z, 1, 6, .15, .5, 1.25)
+    _, _, obj, pts = ntt.smrf(x, y, z, 1, 6, .15, .5, 1.25,
+                              precision="exact", device=dev)
+    check(pts.is_cuda and np.array_equal(pts.cpu().numpy(), ref_pts),
+          "exact point labels differ from the f64 oracle")
+    check(np.array_equal(obj.cpu().numpy(), ref_obj),
+          "exact object cells differ from the f64 oracle")
+
+    x, y, z, *_ = lidar_tile(7, MID_POINTS, MID_SIDE)
+    kw = dict(cellsize=1, windows=MID_WINDOWS, slope_threshold=.15,
+              elevation_threshold=.5, elevation_scaler=1.25,
+              precision="exact")
+    t0 = time.perf_counter()
+    _, _, cells_d, pts_d = ntt.smrf(x, y, z, device=dev, **kw)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, _, cells_h, pts_h = ntt.smrf(x, y, z, device="cpu", **kw)
+    cpu_s = time.perf_counter() - t0
+    check(torch.equal(pts_d.cpu(), pts_h),
+          "mid-size exact point labels: card != CPU")
+    diff = (cells_d.cpu() != cells_h).numpy()
+    margin = None
+    if diff.any():
+        *_, margin = np_smrf(x, y, z, 1, MID_WINDOWS, .15, .5, 1.25,
+                             return_margin=True)
+        margin = float(margin[diff].max())
+        check(margin < TIE_MARGIN, f"{int(diff.sum())} mid-size cells "
+                                   f"differ, max oracle margin {margin}")
+    emit(phase="smrf_oracle", building_scene_points=4000,
+         building_scene_bit_identical=True, mid_points=MID_POINTS,
+         mid_grid=list(cells_d.shape), mid_windows=MID_WINDOWS,
+         mid_cells_differing=int(diff.sum()), mid_max_tie_margin=margin,
+         mid_exact_s={"card": card_s, "cpu": cpu_s})
+
+
+def las_path(ntt, dev, tmp, cloud):
+    """Phase 11: ``write_las`` the smrf_path cloud (PDRF 0), ``smrf_las``
+    it into a second file on the card, read that back: every class is
+    ``smrf``'s label on the file's decoded points, every byte but the
+    classification bits is unchanged, n_object + n_ground == n."""
+    x, y, z = cloud
+    src, out = str(Path(tmp) / "tile.las"), str(Path(tmp) / "classified.las")
+    t0 = time.perf_counter()
+    ntt.write_las(src, x, y, z, pdrf=0)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, t, _, stats = ntt.smrf_las(src, out, device=dev, **SMRF_KW)
+    torch.cuda.synchronize()
+    smrf_las_s = time.perf_counter() - t0
+    _, df = ntt.read_las(src)
+    _, t2, _, is_obj = ntt.smrf(df.x, df.y, df.z, device=dev, **SMRF_KW)
+    hdr, dfo = ntt.read_las(out)
+    n = x.size
+    want = np.where(is_obj.cpu().numpy(), 1, 2)
+    check(t == t2, "smrf_las frame != smrf's frame on the decoded points")
+    check(np.array_equal(np.asarray(dfo["class"]) & 0x1F, want),
+          "smrf_las classes differ from smrf's labels")
+    check(stats["n_points"] == n and stats["n_object"] + stats["n_ground"]
+          == n and stats["n_object"] == int(is_obj.sum()),
+          f"smrf_las stats {stats}")
+    raw_in = np.fromfile(src, np.uint8)
+    raw_out = np.fromfile(out, np.uint8)
+    off0, reclen = hdr["point_data_offset"], hdr["point_data_record_length"]
+    check(raw_in.size == raw_out.size
+          and np.array_equal(raw_in[:off0], raw_out[:off0]),
+          "smrf_las changed the header or the file size")
+    recs_in = raw_in[off0:off0 + n * reclen].reshape(n, reclen)
+    recs_out = raw_out[off0:off0 + n * reclen].reshape(n, reclen)
+    keep = np.ones(reclen, bool)
+    keep[15] = False
+    check(np.array_equal(recs_in[:, keep], recs_out[:, keep])
+          and np.array_equal(recs_in[:, 15] & 0xE0, recs_out[:, 15] & 0xE0),
+          "smrf_las changed a byte other than the classification bits")
+    emit(phase="las_path", points=n, file_mb=raw_in.size / 2**20,
+         write_las_s=write_s, smrf_las_s=smrf_las_s, stats=stats)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing run",
@@ -1631,7 +2120,12 @@ def main():
                             cuda_scan, Zd).items()]:
         max_err[kid] = max(max_err[kid], err)
     res = phase("timings", timings, ntt, cuda_scan, Zd, mesh, card, share)
-    emit(phase="walls", seconds=walls)
+    cloud = phase("smrf_path", smrf_path, ntt, cuda_scan, dev)
+    phase("inpaint_scale", inpaint_scale, ntt, dev)
+    phase("smrf_oracle", smrf_oracle, ntt, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase("las_path", las_path, ntt, dev, tmp, cloud)
+    emit(phase="walls", seconds=walls, total=sum(walls.values()))
 
     # each kernel's launches on the path that runs it
     launches = {"K1": main_counts["K1"],
