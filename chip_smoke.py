@@ -95,6 +95,33 @@ K1-K5 (each phase raises on failure):
   back: classes equal ``smrf``'s labels on the decoded points, every byte
   but the classification bits unchanged.
 
+Then the DEM-products slice, plain torch ops on the card as well (none
+of K1-K5; each phase raises on failure):
+
+- ``surface_path``: the README's quickstart at 8192^2, cellsize 10: the
+  GeoTIFF -> ``imread`` -> ``hillshade`` -> ``imwrite`` (.tif), then
+  ``swiss_shading`` -> ``imwrite`` (.png), K1-K5 counted 0, each host and
+  device leg clocked, under one ``torch.profiler`` pass (idle share);
+- ``surface_vs_plain``: every public device function of the slice on the
+  card against the port's CPU run on a 1024 x 1536 crop of the DEM with
+  NaN holes (floats within rtol 1e-5 plus a small share of their range;
+  uint8 off by one on < 0.1%; a table gather equal wherever both devices
+  read one cell, which they do on > 99.9%; bins except at P ties), the
+  uint8 cast (NaN -> 0, saturating) and the NaN holes on the card,
+  ``convolve2d_nearest`` within 1e-5 of the sum of its |terms| (TF32 off;
+  emulated TF32 must fail that), and float64 numpy oracles: hillshade
+  (off by one on < 0.1%), curvature (-100 ndi.laplace) and swiss shading
+  at 8192^2, Gi* (disk r=5) at 2048 x 4096 with its counts exact and z
+  within 2e-4;
+- ``sharded_surface``: ``sharded_hillshade``, ``sharded_rastergi``,
+  ``sharded_morans_i`` and ``sharded_local_morans_i`` on the 2 x 2 mesh
+  of this card at 8192^2 and on an 8191 x 8190 crop, against their
+  single-device forms (hillshade at most one level apart, the statistics
+  within tests/test_dist.py's tolerances), with sharded / single walls;
+- ``surface_timing``: per function of the slice at 8192^2, the median of
+  5 CUDA-event runs, the launches of one call (profiler), the peak
+  memory above the input and the bytes-once bound at the HBM rate.
+
 Tolerances, kernel against plain version: counts, classes, extrema and
 ternary codes exact; openness within 5e-5 degrees, with +inf (a pixel
 that saw nothing) at the same pixels; skyview factor within 1e-6.
@@ -2058,6 +2085,561 @@ def las_path(ntt, dev, tmp, cloud):
          write_las_s=write_s, smrf_las_s=smrf_las_s, stats=stats)
 
 
+# ----------------------------------------------------------------------
+# the DEM products slice: surface stencils, shading, statistics and their
+# sharded forms, plain torch ops on the card (none of K1-K5)
+# ----------------------------------------------------------------------
+SURFACE_CROP = (1024, 1536)    # surface_vs_plain: a crop of bench_input
+STATS_SHAPE = (2048, 4096)     # bench.py BENCH_SHAPE, its bench_stats
+SHARDED_CROP = (8191, 8190)    # the one-card 2 x 2 mesh does not divide it
+# a float product on the card against the CPU: rtol, plus an absolute
+# tolerance of this share of its largest |value| (tests/test_torch_surface
+# .py's FLOAT_TOL, on a raster of another magnitude)
+SURFACE_RTOL = 1e-5
+SURFACE_ATOL_SHARE = 1e-6
+CONV_RTOL = 1e-5               # of the sum of |terms|: TF32 errs ~5e-4
+UINT8_SHARE = 1e-3             # off by one level on < 0.1% of the pixels
+P_TIE = 1e-5                   # a bin may flip within this of .1/.05/.01
+GI_ORACLE_TOL = 2e-4           # tests/test_stats_viz_aux.py's oracle test
+SHARDED_STATS_TOL = 2e-4       # tests/test_dist.py
+SHARDED_MORANS_RTOL = 5e-4     # tests/test_dist.py
+
+
+def np_hillshade(Z, cellsize=1, z_factor=1, zenith=45, azimuth=315):
+    """float64 numpy hillshade, a copy of tests/reference_impls.py's
+    ``np_hillshade`` (with its ``np_gradient_slope``)."""
+    zen, azi = np.deg2rad((zenith, azimuth))
+    gy, gx = np.gradient(Z, cellsize / z_factor)
+    S = np.arctan(np.sqrt(gx ** 2 + gy ** 2))
+    gy, gx = np.gradient(Z)
+    A = np.pi / 2 - np.arctan2(gy, -gx)
+    A[A < 0] += 2 * np.pi
+    A[(gx == 0) & (gy == 0)] = 0
+    H = np.cos(zen) * np.cos(S) + np.sin(zen) * np.sin(S) * np.cos(azi - A)
+    H[H < 0] = 0
+    return np.round(255 * H).astype(np.uint8)
+
+
+def holed(Z):
+    """``Z`` (float32) with NaN holes: a block, a lone cell, a cell on the
+    top edge and one in the last column."""
+    Z = np.array(Z, dtype=np.float32)
+    H, W = Z.shape
+    Z[H // 3:H // 3 + 40, W // 3:W // 3 + 60] = np.nan
+    Z[2 * H // 3, W // 10] = np.nan
+    Z[0, W // 2] = np.nan
+    Z[H // 2, W - 1] = np.nan
+    return Z
+
+
+def uint8_err(got, want, what):
+    """(max |diff|, share of pixels that differ); fails past one level or
+    on UINT8_SHARE of the pixels."""
+    check(got.dtype == torch.uint8 and want.dtype == torch.uint8
+          and got.shape == want.shape, f"{what}: dtype/shape")
+    d = (got.int() - want.int()).abs()
+    mx, share = int(d.max()), float((d > 0).double().mean())
+    check(mx <= 1 and share < UINT8_SHARE,
+          f"{what}: uint8 off by {mx} on {share:.2e} of the pixels")
+    return mx, share
+
+
+def scaled_err(got, want, what, rtol=SURFACE_RTOL, share=0.0, atol=0.0):
+    """max |got - want| / (rtol |want| + atol + share max|want|) over the
+    finite pixels, NaN and inf at the same pixels; fails above 1."""
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          f"{what}: dtype/shape")
+    check(torch.equal(torch.isnan(got), torch.isnan(want)),
+          f"{what}: NaN at other pixels")
+    fin = torch.isfinite(want)
+    check(torch.equal(fin, torch.isfinite(got)),
+          f"{what}: inf at other pixels")
+    g, w = got[fin].double(), want[fin].double()
+    if not w.numel():
+        return 0.0
+    tol = rtol * w.abs() + atol + share * float(w.abs().max())
+    r = float(((g - w).abs() / tol.clamp(min=1e-300)).max())
+    check(r <= 1, f"{what}: {r:.3g} x its tolerance")
+    return r
+
+
+def bins_err(got, want, P, what):
+    """Significance bins equal wherever P is not within P_TIE of .1, .05 or
+    .01; returns the pixels that differ."""
+    same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+    edge = torch.zeros_like(same)
+    for e in (.1, .05, .01):
+        edge |= (P - e).abs() < P_TIE
+    check(bool((same | edge).all()), f"{what}: a bin differs off a tie")
+    return int((~same).sum())
+
+
+def surface_calls(ntt, Z, cellsize, H):
+    """Every public device function of the slice on ``Z`` (a tensor: its
+    device decides where each runs), as (name, kind, call); ``H`` is the
+    hillshade brassel takes, one input for both devices."""
+    from neilpy_tpu_torch.ops import surface
+    k = np.random.default_rng(1).normal(size=(5, 7))
+    gray = ntt.swiss_lut()
+    return [
+        ("slope", "float", lambda: ntt.slope(Z, cellsize)),
+        ("esri_slope", "float", lambda: ntt.esri_slope(Z, cellsize)),
+        ("aspect", "float", lambda: ntt.aspect(Z)),
+        ("hillshade", "uint8", lambda: ntt.hillshade(Z, cellsize)),
+        ("hillshade float", "float",
+         lambda: ntt.hillshade(Z, cellsize, return_uint8=False)),
+        ("multiple_illumination", "uint8",
+         lambda: ntt.multiple_illumination(Z, cellsize)),
+        ("pssm", "uint8", lambda: ntt.pssm(Z, cellsize,
+                                           apply_colormap=False)),
+        ("pssm colormap", "lut:pssm", lambda: ntt.pssm(Z, cellsize)),
+        ("z_factor", "float", lambda: ntt.z_factor(Z[:4, :4] % 90)),
+        ("curvature", "float", lambda: ntt.curvature(Z, cellsize)),
+        ("esri_curvature", "float", lambda: ntt.esri_curvature(Z, cellsize)),
+        ("zevenbergen_and_thorne_curvature", "float",
+         lambda: ntt.zevenbergen_and_thorne_curvature(Z, cellsize)),
+        ("evans_curvature", "float",
+         lambda: ntt.evans_curvature(Z, cellsize)),
+        ("wilson_gallant_curvature", "float",
+         lambda: ntt.wilson_gallant_curvature(Z, cellsize)),
+        ("scaled_morphometry", "float",
+         lambda: ntt.scaled_morphometry(Z, cellsize, 1)),
+        ("scaled_morphometry 50", "float",
+         lambda: ntt.scaled_morphometry(Z, cellsize, 50)),
+        ("triangle_height", "float",
+         lambda: ntt.triangle_height(Z[1:] - Z[:-1], Z[:-1] - Z[1:] * 0.5,
+                                     cellsize)),
+        ("vip_score", "float", lambda: ntt.vip_score(Z, cellsize)),
+        ("std", "float", lambda: ntt.std(Z, ntt.disk(5))),
+        ("std2", "float", lambda: ntt.std2(Z, ntt.disk(3))),
+        ("reduce_peaks", "float", lambda: ntt.reduce_peaks(Z, 5)),
+        ("topographic_position_index", "float",
+         lambda: ntt.topographic_position_index(Z, 5)),
+        ("convolve2d_nearest", "conv",
+         lambda: surface.convolve2d_nearest(Z, k)),
+        ("binary_footprint_sum", "exact",
+         lambda: surface.binary_footprint_sum(torch.isfinite(Z).float(),
+                                              ntt.disk(13))),
+        ("swiss_shading", "lut:shade",
+         lambda: ntt.swiss_shading(Z, cellsize)),
+        ("colortable_shade", "lut:shade", lambda: ntt.colortable_shade(
+            Z, "gray_high_contrast", cellsize)),
+        ("lut_shade", "lut:shade", lambda: ntt.lut_shade(Z, gray, cellsize)),
+        ("brassel_atmospheric_perspective", "uint8",
+         lambda: ntt.brassel_atmospheric_perspective(H, Z, 2)),
+        ("rasterGi", "gi", lambda: ntt.rasterGi(Z, ntt.disk(5), star=True)),
+        ("rasterGi corrected", "gi",
+         lambda: ntt.rasterGi(Z, 2, apply_correction=True)),
+        ("morans_i", "scalars", lambda: ntt.morans_i(Z, 3)),
+        ("local_morans_i", "float", lambda: ntt.local_morans_i(Z, 3)),
+        ("rmse", "scalars", lambda: (ntt.rmse(Z),)),
+        ("shi_landslides", "bool",
+         lambda: ntt.shi_landslides(Z, (5, 13), cellsize)),
+    ]
+
+
+def flat_outputs(out):
+    if isinstance(out, dict):
+        return [out[k] for k in sorted(out)]
+    if isinstance(out, (tuple, list)):
+        return list(out)
+    return [out]
+
+
+def lut_indices(ntt, Z, cellsize):
+    """Where each table gather of the slice reads: the shading's
+    (elevation, hillshade) cell and pssm's class, on ``Z``'s device."""
+    from neilpy_tpu_torch.core.device import to_uint8
+    from neilpy_tpu_torch.viz.shading import _nan_extreme
+    zmin, zmax = _nan_extreme(Z, False), _nan_extreme(Z, True)
+    zn = to_uint8(torch.round(255 * (Z - zmin) / (zmax - zmin)))
+    H = ntt.hillshade(Z, cellsize)
+    return {"shade": zn.long() * 256 + H.long(),
+            "pssm": ntt.pssm(Z, cellsize, apply_colormap=False)}
+
+
+def compare_products(name, kind, got, want, same=None):
+    """One output of ``surface_calls`` on the card against the CPU's;
+    ``same`` maps a gather (``lut_indices``) to the pixels where both
+    devices read one table cell."""
+    got = [g.cpu() for g in flat_outputs(got)]
+    want = flat_outputs(want)
+    check(len(got) == len(want), f"{name}: outputs")
+    if kind.startswith("lut:"):
+        # a gather: equal wherever both devices index one cell, and those
+        # cells apart only where a uint8 index sits on an f32 tie
+        mask = same[kind[4:]]
+        share = float((~mask).double().mean())
+        check(share < UINT8_SHARE, f"{name}: indices differ on {share:.2e}")
+        check(torch.equal(got[0][mask], want[0][mask]),
+              f"{name}: differs where the indices agree")
+        return share
+    if kind == "uint8":
+        return max(uint8_err(g, w, name)[1] for g, w in zip(got, want))
+    if kind == "exact":
+        check(torch.equal(got[0], want[0]), f"{name}: differs")
+        return 0.0
+    if kind == "bool":
+        share = float((got[0] != want[0]).double().mean())
+        check(share < UINT8_SHARE, f"{name}: {share:.2e} of pixels differ")
+        return share
+    if kind == "scalars":
+        r = [abs(float(g) - float(w)) / (SURFACE_RTOL * abs(float(w)))
+             for g, w in zip(got, want)]
+        check(max(r) <= 1, f"{name}: {max(r):.3g} x its tolerance")
+        return max(r)
+    if kind == "gi":
+        (gz, gp, gs), (wz, wp, ws) = got, want
+        r = max(scaled_err(gz, wz, name + " z", atol=1e-5),
+                scaled_err(gp, wp, name + " P", atol=1e-6))
+        bins_err(gs, ws, wp, name)
+        return r
+    return max(scaled_err(g, w, name, share=SURFACE_ATOL_SHARE)
+               for g, w in zip(got, want))
+
+
+def tf32_round(X):
+    """float32 ``X`` rounded to TF32's 10-bit mantissa (nearest, ties
+    away: add half of the dropped 13 bits, then clear them)."""
+    bits = X.to(torch.float32).contiguous().view(torch.int32)
+    bits = (bits + (1 << 12)) & ~((1 << 13) - 1)
+    return bits.view(torch.float32)
+
+
+def conv_rel_err(got, want, Zc, k):
+    """max |got - want| over the sum of |terms| of each output (the CPU
+    correlation of |Z| with |k|): f32 order of adds stays near 1e-7,
+    TF32's 10-bit mantissa near 5e-4."""
+    from neilpy_tpu_torch.ops import surface
+    mag = surface.convolve2d_nearest(Zc.abs(), np.abs(k))
+    fin = torch.isfinite(want)
+    return float(((got.cpu() - want).abs()[fin] / mag[fin]).max())
+
+
+def surface_vs_plain(ntt, dev, Z8):
+    """Phase 12: every public device function of the DEM-products slice
+    on the card against the port's own CPU run on a 1024 x 1536 crop of
+    bench_input with NaN holes (the CPU tests' tolerances); the uint8 cast
+    on the card; ``convolve2d_nearest`` within CONV_RTOL of the sum of
+    its |terms| (TF32 off); then against float64 numpy oracles:
+    ``hillshade``, ``curvature`` and ``swiss_shading`` at 8192^2 and Gi*
+    (disk r=5) at 2048 x 4096, its neighbour counts exact."""
+    from neilpy_tpu_torch.core.device import to_uint8
+    from neilpy_tpu_torch.ops import surface
+    import scipy.ndimage as ndi
+    cs = 10.0
+    crop = holed(Z8[:SURFACE_CROP[0], :SURFACE_CROP[1]])
+    Zc, Zg = torch.from_numpy(crop), torch.from_numpy(crop).to(dev)
+    Hc = ntt.hillshade(Zc, cs)
+    on_card = surface_calls(ntt, Zg, cs, Hc.to(dev))
+    on_cpu = surface_calls(ntt, Zc, cs, Hc)
+    idx_card, idx_cpu = lut_indices(ntt, Zg, cs), lut_indices(ntt, Zc, cs)
+    same = {k: idx_card[k].cpu() == idx_cpu[k] for k in idx_cpu}
+    errs = {}
+    for (name, kind, card_call), (_, _, cpu_call) in zip(on_card, on_cpu):
+        got = card_call()
+        for g in flat_outputs(got):
+            check(g.is_cuda, f"{name}: output not on the card")
+        errs[name] = compare_products(name, kind, got, cpu_call(), same)
+
+    # the uint8 cast and NaN holes on the card
+    vals = torch.tensor([float("nan"), -3, 0.4999, 254.6, 300,
+                         float("inf"), -float("inf")], device=dev)
+    check(to_uint8(vals).tolist() == [0, 0, 0, 254, 255, 255, 0],
+          f"uint8 cast on the card: {to_uint8(vals).tolist()}")
+    hole = torch.isnan(torch.from_numpy(crop))
+    hole_in = hole.clone()
+    hole_in[1:-1, 1:-1] = (hole[:-2, 1:-1] & hole[2:, 1:-1] & hole[1:-1, :-2]
+                           & hole[1:-1, 2:] & hole[1:-1, 1:-1])
+    H = ntt.hillshade(Zg, cs).cpu()
+    P = ntt.pssm(Zg, cs, apply_colormap=False).cpu()
+    rgb = ntt.swiss_shading(Zg, cs).cpu()
+    lut00 = torch.from_numpy(np.array(ntt.swiss_lut()[0, 0]))
+    check(int(hole_in.sum()) > 1000 and not H[hole_in].any()
+          and not P[hole_in].any() and bool((rgb[hole_in] == lut00).all()),
+          "hole: hillshade/pssm 0 and swiss lut[0, 0]")
+
+    # convolve2d_nearest: TF32 off; the same call with TF32 let on
+    k = np.random.default_rng(1).normal(size=(5, 7))
+    want = surface.convolve2d_nearest(Zc, k)
+    conv = {"tf32_off": conv_rel_err(surface.convolve2d_nearest(Zg, k), want,
+                                     Zc, k)}
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(enabled=True, benchmark=False, deterministic=False,
+                     allow_tf32=True):
+        kf = torch.from_numpy(np.ascontiguousarray(
+            k[::-1, ::-1]).astype(np.float32)).to(dev)
+        Xp = surface._pad_footprint(Zg, k.shape, "nearest")
+        tf32 = torch.nn.functional.conv2d(Xp[None, None], kf[None, None])[0, 0]
+    conv["tf32_on"] = conv_rel_err(tf32, want, Zc, k)
+    # what TF32 would give: both operands rounded to a 10-bit mantissa
+    conv["tf32_emulated"] = conv_rel_err(surface.convolve2d_nearest(
+        tf32_round(Zc), tf32_round(torch.from_numpy(k)).numpy()), want, Zc,
+        k)
+    check(conv["tf32_emulated"] > CONV_RTOL,
+          f"a TF32 convolution would pass the check: {conv}")
+    check(conv["tf32_off"] <= CONV_RTOL,
+          f"convolve2d_nearest: {conv['tf32_off']:.3g} of |terms| (TF32?)")
+
+    # float64 numpy oracles at 8192^2
+    Zd = torch.from_numpy(Z8).to(dev)
+    Z64 = Z8.astype(np.float64)
+    H = ntt.hillshade(Zd, cs).cpu().numpy()
+    H_ref = np_hillshade(Z64, cs)
+    hd = np.abs(H.astype(int) - H_ref)
+    oracle = {"hillshade_off_by_one_share": float((hd > 0).mean())}
+    check(hd.max() <= 1 and oracle["hillshade_off_by_one_share"]
+          < UINT8_SHARE, f"hillshade vs the f64 oracle: off by {hd.max()} "
+          f"on {oracle['hillshade_off_by_one_share']:.2e}")
+    K = ntt.curvature(Zd, cs).cpu().numpy()
+    K_ref = -100 * ndi.laplace(Z64 / cs)
+    oracle["curvature_err_over_tol"] = float(np.max(
+        np.abs(K - K_ref) / (3e-4 * np.abs(K_ref) + 1e-3)))
+    check(oracle["curvature_err_over_tol"] <= 1,
+          f"curvature vs -100 laplace: {oracle['curvature_err_over_tol']}")
+    rgb = ntt.swiss_shading(Zd, cs).cpu().numpy()
+    lut = ntt.swiss_lut()
+    zn = np.round(255 * (Z64 - Z64.min()) / (Z64.max() - Z64.min()))
+    rgb_ref = lut[zn.astype(np.int64), H_ref]
+    oracle["swiss_differ_share"] = float((rgb != rgb_ref).any(axis=2).mean())
+    check(oracle["swiss_differ_share"] < UINT8_SHARE,
+          f"swiss vs numpy gather: {oracle['swiss_differ_share']}")
+    del H, H_ref, hd, K, K_ref, rgb, rgb_ref, zn
+
+    # Gi* at bench.py's BENCH_SHAPE: counts exact, z within 2e-4
+    Zs = holed(bench_input(STATS_SHAPE))
+    fp = ntt.disk(5)
+    fin = np.isfinite(Zs)
+    Zsd = torch.from_numpy(Zs).to(dev)
+    w = surface.binary_footprint_sum(torch.isfinite(Zsd).float(), fp)
+    w_ref = ndi.correlate(fin.astype(np.float64), fp.astype(np.float64),
+                          mode="nearest")
+    check(np.array_equal(w.cpu().numpy(), w_ref), "Gi* counts != scipy")
+    z, _, _ = ntt.rasterGi(Zsd, fp, star=True)
+    Zs64 = np.where(fin, Zs, 0.0).astype(np.float64)
+    s = ndi.correlate(Zs64, fp.astype(np.float64), mode="nearest")
+    n = fin.sum()
+    a = s - w_ref * np.nanmean(Zs.astype(np.float64))
+    b = np.sqrt((w_ref / (n - 1)) * (n - w_ref)
+                * np.nanstd(Zs.astype(np.float64)) ** 2)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        z_ref = np.where(fin, a / b, np.nan)
+    z = z.cpu().numpy()
+    check(np.array_equal(np.isnan(z), np.isnan(z_ref)), "Gi* NaN pixels")
+    oracle["gi_star_max_abs_z_err"] = float(np.nanmax(np.abs(z - z_ref)))
+    check(oracle["gi_star_max_abs_z_err"] <= GI_ORACLE_TOL,
+          f"Gi* z vs the f64 oracle: {oracle['gi_star_max_abs_z_err']}")
+    emit(phase="surface_vs_plain", crop=list(SURFACE_CROP),
+         functions=len(errs), err_over_tol=errs, conv_rel_err=conv,
+         hole_pixels=int(hole_in.sum()), oracle=oracle,
+         gi_star_shape=list(STATS_SHAPE))
+
+
+def surface_path(ntt, cuda_scan, dev, tmp, dem):
+    """Phase 13: the README's quickstart on the DEM products at 8192^2,
+    cellsize 10: GeoTIFF -> ``imread`` -> ``hillshade`` -> ``imwrite``
+    (.tif), then ``swiss_shading`` -> ``imwrite`` (.png), once, under one
+    ``torch.profiler`` pass (device idle share), each host and device leg
+    clocked on the host after a synchronise.  It runs none of K1-K5."""
+    tif, png = str(Path(tmp) / "hillshade.tif"), str(Path(tmp) / "swiss.png")
+    ntt.swiss_shading(torch.zeros((64, 64), device=dev), device=dev)  # warm-up
+    legs = {}
+
+    def leg(name, fn):
+        h0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        legs[name] = (time.perf_counter() - h0) * 1e3
+        return out
+
+    def path():
+        Zr, meta = leg("imread_ms", lambda: ntt.imread(dem))
+        Zd = leg("h2d_dem_ms", lambda: torch.from_numpy(Zr).to(dev))
+        H = leg("hillshade_device_ms",
+                lambda: ntt.hillshade(Zd, cellsize=meta["cellsize"]))
+        Hh = leg("d2h_hillshade_ms", lambda: H.cpu().numpy())
+        leg("imwrite_tif_ms", lambda: ntt.imwrite(tif, Hh, meta))
+        rgb = leg("swiss_device_ms",
+                  lambda: ntt.swiss_shading(Zd, cellsize=meta["cellsize"]))
+        rgbh = leg("d2h_swiss_ms", lambda: rgb.cpu().numpy())
+        leg("imwrite_png_ms", lambda: ntt.imwrite(png, rgbh))
+        return Zd, H, rgb
+
+    torch.cuda.synchronize()
+    reset_counts(cuda_scan)
+    (Zd, H, rgb), prof = device_profile(path)
+    counts = read_counts(cuda_scan)
+    check(not any(counts.values()),
+          f"the DEM-products path launched {counts}: it runs none of K1-K5")
+    check(H.is_cuda and H.dtype == torch.uint8 and H.shape == MAIN_SHAPE,
+          "hillshade: device, dtype or shape")
+    check(rgb.is_cuda and rgb.dtype == torch.uint8
+          and rgb.shape == MAIN_SHAPE + (3,), "swiss: device, dtype or shape")
+    check(np.array_equal(ntt.imread(tif)[0], H.cpu().numpy()),
+          "hillshade.tif read-back")
+    from PIL import Image
+    check(np.array_equal(np.asarray(Image.open(png)), rgb.cpu().numpy()),
+          "swiss.png read-back")
+    emit(phase="surface_path", shape=list(MAIN_SHAPE), cellsize=10,
+         launches_by_kernel=counts, wall_s=prof["wall_ms"] / 1e3, legs=legs,
+         profile=prof, png_mb=Path(png).stat().st_size / 2**20)
+    return Zd
+
+
+def sharded_surface(ntt, dev, Zd):
+    """Phase 14: the four sharded DEM products on a 2 x 2 mesh naming this
+    card four times, against their single-device forms, at 8192^2 and on
+    an 8191 x 8190 crop the mesh does not divide: ``sharded_hillshade``
+    equal to ``hillshade`` (at most one level, and counted), Gi* (disk
+    r=5) and local Moran's I within tests/test_dist.py's 2e-4, their bins
+    on > 99.9%, Moran's I within 5e-4; and each sharded / single wall."""
+    dist = ntt.dist
+    mesh = dist.make_mesh([dev] * 4)
+    fp = ntt.disk(5)
+    calls = {
+        "hillshade": (lambda Z: dist.sharded_hillshade(Z, mesh, cellsize=10),
+                      lambda Z: ntt.hillshade(Z, cellsize=10)),
+        "rastergi": (lambda Z: dist.sharded_rastergi(Z, fp, mesh, star=True),
+                     lambda Z: ntt.rasterGi(Z, fp, star=True)),
+        "morans_i": (lambda Z: dist.sharded_morans_i(Z, 3, mesh),
+                     lambda Z: ntt.morans_i(Z, 3)),
+        "local_morans_i": (lambda Z: dist.sharded_local_morans_i(Z, 3, mesh),
+                           lambda Z: ntt.local_morans_i(Z, 3)),
+    }
+    res = {}
+    for shape in (MAIN_SHAPE, SHARDED_CROP):
+        Z = Zd[:shape[0], :shape[1]]
+        for name, (sharded, single) in calls.items():
+            walls = []
+            for fn in (sharded, single, sharded, single):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(Z)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                if fn is sharded:
+                    got = out
+                else:
+                    want = out
+            key = f"{name} {shape[0]}x{shape[1]}"
+            r = {"sharded_over_single_wall": walls[2] / walls[3],
+                 "sharded_ms": walls[2] * 1e3, "single_ms": walls[3] * 1e3}
+            if name == "hillshade":
+                d = (got.int() - want.int()).abs()
+                r["max_levels"] = int(d.max())
+                r["pixels_differ"] = int((d > 0).sum())
+                check(r["max_levels"] <= 1, f"{key}: {r['max_levels']} levels")
+            elif name == "morans_i":
+                r["rel_err"] = max(abs(float(g) - float(w)) / abs(float(w))
+                                   for g, w in zip(got, want))
+                check(r["rel_err"] <= SHARDED_MORANS_RTOL, f"{key}: {r}")
+            elif name == "local_morans_i":
+                r["err_over_tol"] = scaled_err(
+                    got, want, key, rtol=SHARDED_STATS_TOL,
+                    atol=SHARDED_STATS_TOL)
+            else:
+                (gz, gp, gs), (wz, wp, ws) = got, want
+                r["err_over_tol"] = max(
+                    scaled_err(gz, wz, key + " z", rtol=SHARDED_STATS_TOL,
+                               atol=SHARDED_STATS_TOL),
+                    scaled_err(gp, wp, key + " P", rtol=0,
+                               atol=SHARDED_STATS_TOL))
+                same = (gs == ws) | (torch.isnan(gs) & torch.isnan(ws))
+                r["bins_equal_share"] = float(same.double().mean())
+                check(r["bins_equal_share"] > 0.999, f"{key}: bins")
+            res[key] = r
+    emit(phase="sharded_surface", mesh=list(mesh.devices.shape), results=res)
+
+
+# (name, call, bytes per pixel moved at least: input read + outputs written)
+def timed_products(ntt, Zd, H):
+    fp5, fp13 = ntt.disk(5), ntt.disk(13)
+    return [
+        ("slope", lambda: ntt.slope(Zd, 10), 8),
+        ("aspect", lambda: ntt.aspect(Zd), 8),
+        ("hillshade", lambda: ntt.hillshade(Zd, 10), 5),
+        ("multiple_illumination", lambda: ntt.multiple_illumination(Zd, 10),
+         5),
+        ("pssm", lambda: ntt.pssm(Zd, 10), 4 + 32),
+        ("curvature", lambda: ntt.curvature(Zd, 10), 8),
+        ("esri_curvature", lambda: ntt.esri_curvature(Zd, 10), 4 + 12),
+        ("zevenbergen_and_thorne_curvature",
+         lambda: ntt.zevenbergen_and_thorne_curvature(Zd, 10), 4 + 24),
+        ("evans_curvature", lambda: ntt.evans_curvature(Zd, 10), 4 + 24),
+        ("wilson_gallant_curvature",
+         lambda: ntt.wilson_gallant_curvature(Zd, 10), 4 + 16),
+        ("scaled_morphometry lookup 1",
+         lambda: ntt.scaled_morphometry(Zd, 10, 1), 4 + 32),
+        ("scaled_morphometry lookup 50",
+         lambda: ntt.scaled_morphometry(Zd, 10, 50), 4 + 32),
+        ("vip_score", lambda: ntt.vip_score(Zd, 10), 8),
+        ("std disk 5", lambda: ntt.std(Zd, fp5), 8),
+        ("reduce_peaks radius 5", lambda: ntt.reduce_peaks(Zd, 5), 8),
+        ("topographic_position_index radius 5",
+         lambda: ntt.topographic_position_index(Zd, 5), 8),
+        ("swiss_shading", lambda: ntt.swiss_shading(Zd, 10), 4 + 3),
+        ("brassel_atmospheric_perspective",
+         lambda: ntt.brassel_atmospheric_perspective(H, Zd, 2), 1 + 4 + 1),
+        ("rasterGi star disk 5", lambda: ntt.rasterGi(Zd, fp5, star=True),
+         4 + 12),
+        ("rasterGi star disk 13", lambda: ntt.rasterGi(Zd, fp13, star=True),
+         4 + 12),
+        ("morans_i 3", lambda: ntt.morans_i(Zd, 3), 4),
+        ("local_morans_i 3", lambda: ntt.local_morans_i(Zd, 3), 8),
+        ("shi_landslides 5 13",
+         lambda: ntt.shi_landslides(Zd, (5, 13), 10), 4 + 1),
+    ]
+
+
+def launches_of(call):
+    """Kernel launches of one call by ``torch.profiler`` (CUDA activity;
+    the process's first profiled window has run already)."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        call()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA
+               and not e.name().startswith(("Memcpy", "Memset")))
+
+
+def surface_timing(ntt, dev, Zd, card):
+    """Phase 15: CUDA-event medians of TIMED_RUNS calls at 8192^2,
+    cellsize 10, of the slice's functions; each with its launches per
+    call (profiler), its peak memory above the input
+    (``max_memory_allocated`` after a reset), its bytes-once bound (the
+    input read and the outputs written once at the HBM rate) and time /
+    bound."""
+    H = ntt.hillshade(Zd, 10)
+    rows = {}
+    for name, call, bpp in timed_products(ntt, Zd, H):
+        call()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(TIMED_RUNS):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            call()
+            stop.record()
+            stop.synchronize()
+            times.append(start.elapsed_time(stop))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        call()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        ms = statistics.median(times)
+        bound_ms = bpp * Zd.numel() / PEAK_HBM_BYTES * 1e3
+        rows[name] = {"ms": ms, "launches": launches_of(call),
+                      "peak_mib": peak / 2**20, "bound_ms": bound_ms,
+                      "bytes_per_pixel": bpp, "over_bound": ms / bound_ms}
+    emit(phase="surface_timing", shape=list(MAIN_SHAPE), card=card,
+         runs=TIMED_RUNS, functions=rows)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing run",
@@ -2125,6 +2707,16 @@ def main():
     phase("smrf_oracle", smrf_oracle, ntt, dev)
     with tempfile.TemporaryDirectory() as tmp:
         phase("las_path", las_path, ntt, dev, tmp, cloud)
+    del cloud
+    with tempfile.TemporaryDirectory() as tmp:
+        Z, dem = write_dem(ntt, tmp)
+        Zdem = phase("surface_path", surface_path, ntt, cuda_scan, dev,
+                     tmp, dem)
+    phase("surface_vs_plain", surface_vs_plain, ntt, dev, Z)
+    del Z
+    phase("sharded_surface", sharded_surface, ntt, dev, Zdem)
+    phase("surface_timing", surface_timing, ntt, dev, Zdem, card)
+    del Zdem
     emit(phase="walls", seconds=walls, total=sum(walls.values()))
 
     # each kernel's launches on the path that runs it

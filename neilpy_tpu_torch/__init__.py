@@ -10,7 +10,11 @@ mesh of torch devices, which may repeat one card), and the SMRF lidar
 pipeline (points -> min-surface scatter -> springs inpaint ->
 disk-opening ladder -> spline lift -> ground labels; ``core/grid``,
 ``io/text``, ``io/las``, ``ops/pointgrid``, ``ops/morphology``,
-``ops/inpaint``, ``ops/spline``, ``pipelines/smrf``)::
+``ops/inpaint``, ``ops/spline``, ``pipelines/smrf``), and the DEM
+products (``ops/surface``: slope, aspect, hillshade, every curvature
+family, TPI, ...; ``viz/shading``: Swiss and colour-table shading,
+Brassel's atmospheric perspective; ``ops/stats``: Getis-Ord Gi/Gi*,
+Moran's I and the accuracy metrics; their sharded forms in ``dist``)::
 
     import neilpy_tpu_torch as ntt
     Z, meta = ntt.imread("dem.tif")
@@ -26,12 +30,16 @@ disk-opening ladder -> spline lift -> ground labels; ``core/grid``,
     Zpro, t, cells, is_object = ntt.smrf(df.x, df.y, df.z, 1, 18, .15, .5,
                                          1.25)
     ntt.smrf_las("in.las", "classified.las", windows=18)
+    H = ntt.hillshade(Z, cellsize=meta["cellsize"])
+    ntt.imwrite("hillshade.tif", H, meta)
+    rgb = ntt.swiss_shading(Z, cellsize=meta["cellsize"])
+    Gi, P, sig = ntt.rasterGi(Z, ntt.disk(5), star=True)
 
 Numpy input goes to the CUDA device by default, where the scan ladder
 runs in hand-written kernels (``csrc/*.cu``, built with nvcc at first
 use); ``device='cpu'`` runs their plain PyTorch versions instead.  The
-SMRF slice runs plain torch ops on the device (``precision='exact'`` in
-float64 there).  Names and arguments follow ``neilpy_tpu``.  The
+SMRF slice and the DEM products run plain torch ops on the device
+(``precision='exact'`` in float64 there).  Names and arguments follow ``neilpy_tpu``.  The
 package imports neither ``jax`` nor ``neilpy_tpu``.
 """
 
@@ -55,6 +63,17 @@ from .io.worldfile import write_worldfile
 from .io.png import write_paletted_png
 from .io.text import read_isprs, read_xyz
 
+# ----- surface ops ----------------------------------------------------
+from .ops.surface import (esri_slope, slope, aspect, curvature,
+                          esri_curvature,
+                          zevenbergen_and_thorne_curvature,
+                          evans_curvature, wilson_gallant_curvature,
+                          hillshade, multiple_illumination, pssm,
+                          z_factor, triangle_height, vip_score, std,
+                          std2, reduce_peaks,
+                          topographic_position_index,
+                          scaled_morphometry)
+
 # ----- visibility / geomorphons --------------------------------------
 from .ops.visibility import (openness, openness_pair, skyview_factor,
                              count_openness,
@@ -71,6 +90,17 @@ from .ops.morphology import (grey_erosion_disk, grey_dilation_disk,
                              opening_disk, opening, erosion, dilation)
 from .ops.spline import interp_spline_2d
 from .pipelines.smrf import smrf, smrf_las, progressive_filter
+
+# ----- statistics -----------------------------------------------------
+from .ops.stats import (gi_formula, gistar_formula, rasterGi, morans_i,
+                        local_morans_i, rmse, score, shi_landslides, bdr,
+                        chamfer_distance, hungarian_algorithm,
+                        bdr_bootstrap)
+
+# ----- visualization --------------------------------------------------
+from .viz.shading import (swiss_shading, colortable_shade, swiss_lut,
+                          brassel_atmospheric_perspective, corner_lut,
+                          lut_shade)
 
 # ----- multi-device (single-process mesh) ----------------------------
 from . import dist

@@ -57,3 +57,13 @@ def float_tensor(A, device=None):
 _NUMPY = {torch.float32: np.float32, torch.float64: np.float64,
           torch.int32: np.int32, torch.int64: np.int64, torch.bool: np.bool_,
           torch.uint8: np.uint8}
+
+
+def to_uint8(X):
+    """``X`` cast to uint8 as JAX casts float to uint8: NaN -> 0, values
+    clamped to [0, 255], then truncated toward zero.  A plain torch cast
+    wraps out-of-range values (300 -> 44, -3 -> 253) and leaves NaN
+    unspecified on CUDA, so every uint8 product of the port goes through
+    here."""
+    X = torch.nan_to_num(X, nan=0.0, posinf=255.0, neginf=0.0)
+    return X.clamp(0, 255).to(torch.uint8)

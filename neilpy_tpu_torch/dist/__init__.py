@@ -1,6 +1,7 @@
 """Multi-device execution layer: 2-D device meshes, halo exchange and
 sharded raster pipelines (PyTorch counterpart of ``neilpy_tpu/dist/``,
-its openness part).
+its openness part and the DEM products: hillshade, Getis-Ord Gi/Gi*,
+global and local Moran's I).
 
 A mesh is a grid of ``torch.device`` driven from one process; it may
 name one device several times, so the sharded path runs on one card or
@@ -8,11 +9,14 @@ on the host as well as across cards.
 """
 
 from .api import (Mesh, make_mesh, pad_to_mesh, sharded_apply,
-                  sharded_geomorphons, sharded_openness, sharded_skyview)
+                  sharded_geomorphons, sharded_openness, sharded_skyview,
+                  sharded_rastergi, sharded_morans_i,
+                  sharded_local_morans_i, sharded_hillshade)
 from .halo import halo_exchange_2d, block_origin
 
 __all__ = [
     "Mesh", "make_mesh", "pad_to_mesh", "sharded_apply",
     "sharded_geomorphons", "sharded_openness", "sharded_skyview",
-    "halo_exchange_2d", "block_origin",
+    "sharded_rastergi", "sharded_morans_i", "sharded_local_morans_i",
+    "sharded_hillshade", "halo_exchange_2d", "block_origin",
 ]

@@ -1,4 +1,5 @@
-"""The PyTorch port imports neither JAX nor the JAX package: every module
+"""The PyTorch port imports neither JAX nor the JAX package, nor sklearn or
+matplotlib, which the card's machine does not promise: every module
 under ``neilpy_tpu_torch/`` (and ``chip_smoke.py``, which runs where JAX
 is not installed) is parsed and each of its imports checked, including
 the ones inside functions."""
@@ -10,7 +11,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 MODULES = sorted((REPO / "neilpy_tpu_torch").rglob("*.py"))
-FORBIDDEN = ("jax", "jaxlib", "neilpy_tpu")
+FORBIDDEN = ("jax", "jaxlib", "neilpy_tpu", "sklearn", "matplotlib")
 
 
 def imported_modules(path):
@@ -32,9 +33,13 @@ def test_the_guard_sees_every_module():
     names = {p.relative_to(REPO).as_posix() for p in MODULES}
     for expect in ("neilpy_tpu_torch/__init__.py",
                    "neilpy_tpu_torch/pipelines/smrf.py",
-                   "neilpy_tpu_torch/ops/pointgrid.py"):
+                   "neilpy_tpu_torch/ops/pointgrid.py",
+                   "neilpy_tpu_torch/ops/surface.py",
+                   "neilpy_tpu_torch/ops/stats.py",
+                   "neilpy_tpu_torch/viz/shading.py"):
         assert expect in names
     assert forbidden("jax.numpy") and forbidden("neilpy_tpu.ops.inpaint")
+    assert forbidden("sklearn.metrics") and forbidden("matplotlib.pyplot")
     assert not forbidden("neilpy_tpu_torch.ops.inpaint")
 
 
