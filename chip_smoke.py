@@ -122,6 +122,31 @@ of K1-K5; each phase raises on failure):
   5 CUDA-event runs, the launches of one call (profiler), the peak
   memory above the input and the bytes-once bound at the HBM rate.
 
+Then BASELINE config 5, the sharded SMRF (plain torch ops, none of
+K1-K5) and the out-of-core mosaic stream (whose tile program launches K1
+for the classes and K2 for the openness pair, dynamic route):
+
+- ``sharded_smrf_path``: ``dist.sharded_smrf`` on a 2 x 2 mesh of this
+  card against ``smrf`` fast on smrf_path's 5M points (windows 18):
+  cells and labels equal on >= 99.9%, ``Zpro`` within 1e-3, K1-K5 counted
+  0, both calls' stages on CUDA events (CG iterations per fill), one
+  profiler pass; ``sharded_progressive_filter`` bit for bit at 2001^2;
+  ``sharded_springs_fill`` on inpaint_scale's 4096^2 raster within 1e-3
+  of the float64 fill;
+- ``mosaic_path``: a seeded 32768^2 DEM in an ``np.memmap`` (a smaller
+  side, printed first, where the disk is short) through
+  ``mosaic_terrain_products`` (trio, lookup 25, tile 4096, exact wire,
+  streamed) into three output memmaps: a child process SIGKILLed at half
+  the tiles, the resume here (K1 one launch per remaining tile, all on the
+  TMA load of the 4156^2 tile), an uninterrupted run under the profiler
+  with the same CRC, three interior windows recomputed untiled on the
+  card (``mosaic_child`` is the child's entry, ``--mosaic-child``);
+- ``mosaic_vs_plain``: all six products at 8192^2, lookup 31 (4158^2
+  tiles, K1's and K2's cp.async load): streamed == resident == a one-card
+  2 x 2 mesh bit for bit, compact == exact where exact and its bf16
+  rounding elsewhere, card == CPU plain on a 1024^2 crop; K1 and K2 timed
+  on one mosaic tile each against their plain versions.
+
 Tolerances, kernel against plain version: counts, classes, extrema and
 ternary codes exact; openness within 5e-5 degrees, with +inf (a pixel
 that saw nothing) at the same pixels; skyview factor within 1e-6.
@@ -142,6 +167,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -1957,7 +1983,7 @@ def smrf_path(ntt, cuda_scan, dev):
          building_flagged={"fast": flagged, "exact": flagged_x},
          ground_kept={"fast": kept, "exact": kept_x},
          object_share=float(pts.double().mean()))
-    return x, y, z
+    return (x, y, z), prof
 
 
 def inpaint_scale(ntt, dev):
@@ -1993,6 +2019,7 @@ def inpaint_scale(ntt, dev):
          hole_share=float((~known).double().mean()),
          f32=runs["f32"][1], f64_tol_1e12=runs["f64"][1],
          max_abs_diff_f32_vs_f64=err)
+    return Zd, runs["f32"][0], runs["f64"][0]
 
 
 def smrf_oracle(ntt, dev):
@@ -2640,7 +2667,510 @@ def surface_timing(ntt, dev, Zd, card):
          runs=TIMED_RUNS, functions=rows)
 
 
+# ----------------------------------------------------------------------
+# BASELINE config 5: the sharded SMRF (plain torch ops on the card, none
+# of K1-K5) and the out-of-core mosaic stream (its tile program launches
+# K1 for the classes and K2 for the openness pair)
+# ----------------------------------------------------------------------
+SHARDED_ZPRO_TOL = 1e-3        # tests/test_torch_dist_smrf.py
+SHARDED_FILL_TOL = 1e-3        # of the f64 fill, as inpaint_scale's f32 one
+MOSAIC_SIDES = (32768, 24576, 16384)   # the first that fits on the disk
+MOSAIC_PX_BYTES = 4 + 1 + 1 + 4        # DEM + classes + objects + Moran
+MOSAIC_KW = dict(cellsize=1, lookup_pixels=25, threshold_angle=1,
+                 windows=5, slope_threshold=.15, gi_radius=3,
+                 tile_size=4096, wire="exact", device_input=False)
+MOSAIC_OUT_DTYPES = (np.uint8, bool, np.float32)
+MOSAIC_WINDOW = 2048           # three interior windows recomputed untiled
+MORAN_TOL = 1e-5               # tests/test_torch_tiling.py
+SIX = ("geomorphons", "objects", "moran", "gi", "openness_pos",
+       "openness_neg")
+# lookup 31: overlap 31, a 4158^2 tile (W % 4 = 2), K1's and K2's cp.async
+# load; mosaic_path's lookup 25 gives overlap 30 (the ladder's 2 * 15), a
+# 4156^2 tile and the TMA load
+VS_PLAIN_KW = dict(cellsize=1, lookup_pixels=31, threshold_angle=1,
+                   windows=5, gi_radius=3, tile_size=4096, products=SIX)
+VS_PLAIN_CROP = 1024
+
+
+def sharded_smrf_path(ntt, cuda_scan, dev, cloud, single_prof, fills):
+    """Phase 16: ``dist.sharded_smrf`` on a 2 x 2 mesh naming this card
+    four times against ``smrf`` fast on smrf_path's 5M-point tile (cellsize
+    1, windows 18): object cells and point labels equal on >= 99.9%,
+    ``Zpro`` within 1e-3; each call's stages on CUDA events (CG iterations
+    and host syncs per fill) in this run; K1-K5 counted 0 over the sharded
+    call; one ``torch.profiler`` pass of it (launches, idle share; the
+    single call's is smrf_path's).  Then ``sharded_progressive_filter`` bit
+    for bit ``progressive_filter`` on the filled 2001^2 surface, windows
+    1-18, and ``sharded_springs_fill`` on inpaint_scale's 4096^2 holed
+    raster within 1e-3 of the float64 fill, as the single f32 fill is."""
+    from neilpy_tpu_torch.dist.smrf import _sharded_fill, _sharded_smrf_run
+    from neilpy_tpu_torch.ops import inpaint, pointgrid
+    from neilpy_tpu_torch.pipelines.smrf import _smrf_run
+    x, y, z = cloud
+    n = x.size
+    mesh = ntt.dist.make_mesh([dev] * 4)
+    xs, ys, zs, *_ = lidar_tile(6, MID_POINTS, MID_SIDE)  # warm-up
+    ntt.dist.sharded_smrf(xs, ys, zs, mesh=mesh, **SMRF_KW)
+    torch.cuda.synchronize()
+
+    single_clock = StageClock()
+    Zp, t, cells, pts = _smrf_run(
+        x, y, z, precision="fast", mark=single_clock, chunk_points=n,
+        low_filter_slope=5, low_outlier_fill=False, return_extras=False,
+        device=dev, **SMRF_KW)
+    reset_counts(cuda_scan)
+    clock = StageClock()
+    sZp, st, scells, spts = _sharded_smrf_run(
+        x, y, z, SMRF_KW["cellsize"], SMRF_KW["windows"],
+        SMRF_KW["slope_threshold"], SMRF_KW["elevation_threshold"],
+        SMRF_KW["elevation_scaler"], 5, False, mesh, ("ty", "tx"), 1e-7,
+        4000, 256, mark=clock)
+    counts = read_counts(cuda_scan)
+    check(not any(counts.values()),
+          f"sharded_smrf launched {counts}: it runs none of K1-K5")
+    stages, single_stages = clock.stages(), single_clock.stages()
+    wall = clock.marks[0][1].elapsed_time(clock.marks[-1][1])
+    single_wall = single_clock.marks[0][1].elapsed_time(
+        single_clock.marks[-1][1])
+    check(tuple(st) == tuple(t) and sZp.shape == Zp.shape
+          and spts.shape == (n,) and spts.is_cuda,
+          "sharded_smrf: frame, shape or device differs")
+    cells_agree = float((scells == cells).double().mean())
+    pts_agree = float((spts == pts).double().mean())
+    zpro_err = float((sZp - Zp).abs().max())
+    check(cells_agree >= 0.999 and pts_agree >= 0.999,
+          f"sharded_smrf agrees with smrf on {cells_agree:.5f} of the "
+          f"cells and {pts_agree:.5f} of the points (need >= 0.999)")
+    check(zpro_err <= SHARDED_ZPRO_TOL,
+          f"sharded Zpro: max |diff| {zpro_err} above {SHARDED_ZPRO_TOL}")
+    _, prof = device_profile(lambda: ntt.dist.sharded_smrf(
+        x, y, z, mesh=mesh, **SMRF_KW))
+
+    Zmin, _ = pointgrid.create_dem(x, y, z, cellsize=1, bin_type="min",
+                                   device=dev)
+    Zf = inpaint.springs_fill(Zmin)
+    windows = np.arange(1, SMRF_KW["windows"] + 1)
+    pf = ntt.progressive_filter(Zf, windows, 1, .15, device=dev)
+    spf = ntt.dist.sharded_progressive_filter(Zf, windows, mesh, 1, .15)
+    check(torch.equal(pf, spf), "sharded_progressive_filter differs from "
+                                "progressive_filter")
+
+    Zh, f32, f64 = fills
+    torch.cuda.synchronize()
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    sfill, info = _sharded_fill(Zh, mesh, ("ty", "tx"), 1e-7, 4000, 256)
+    stop.record()
+    stop.synchronize()
+    fill_err = float((sfill.double() - f64).abs().max())
+    known = ~torch.isnan(Zh)
+    check(torch.equal(sfill[known], Zh[known]),
+          "the sharded fill changed a known cell")
+    check(fill_err <= SHARDED_FILL_TOL,
+          f"sharded fill vs the f64 fill: max |diff| {fill_err} above "
+          f"{SHARDED_FILL_TOL}")
+    emit(phase="sharded_smrf_path", mesh=[2, 2], points=n,
+         grid=list(Zp.shape), windows=SMRF_KW["windows"],
+         launches_by_kernel=counts,
+         wall_ms={"sharded": wall, "single": single_wall,
+                  "ratio": wall / single_wall},
+         stages_sharded=stages, stages_single=single_stages,
+         profile_sharded=prof, profile_single=single_prof,
+         launch_ratio=prof["launches"] / single_prof["launches"],
+         cell_agreement=cells_agree, label_agreement=pts_agree,
+         zpro_max_abs_diff=zpro_err, progressive_filter_bit_identical=True,
+         springs_fill_4096=dict(
+             ms=start.elapsed_time(stop), **info,
+             max_abs_diff_vs_f64=fill_err,
+             max_abs_diff_vs_single_f32=float((sfill - f32).abs().max())))
+
+
+def write_mosaic_dem(path, side, dev, band=2048, seed=0):
+    """bench_input's recipe at ``side``^2 straight into an ``np.memmap``:
+    seeded normals drawn on the card in row bands, summed along columns
+    (carried across bands) and along rows, each band copied out as it is
+    made, so host memory holds one band."""
+    Z = np.memmap(path, dtype=np.float32, mode="w+", shape=(side, side))
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    carry = torch.zeros(side, device=dev)
+    for r0 in range(0, side, band):
+        e = torch.randn((min(band, side - r0), side), generator=g,
+                        device=dev)
+        down = torch.cumsum(e, dim=0) + carry
+        carry = down[-1].clone()
+        Z[r0:r0 + e.shape[0]] = (down + torch.cumsum(e, dim=1)).cpu().numpy()
+    Z.flush()
+    del Z
+
+
+def mosaic_arrays(spec, mode):
+    """The DEM (read-only) and the three output memmaps of ``spec``."""
+    side = spec["side"]
+    Z = np.memmap(spec["dem"], dtype=np.float32, mode="r",
+                  shape=(side, side))
+    outs = tuple(np.memmap(p, dtype=dt, mode=mode, shape=(side, side))
+                 for p, dt in zip(spec["outs"], MOSAIC_OUT_DTYPES))
+    return Z, outs
+
+
+def mosaic_child(arg):
+    """``--mosaic-child <spec>``: mosaic_path's run to be killed, the
+    spec's mosaic into its memmaps with its checkpoint."""
+    import neilpy_tpu_torch as ntt
+    spec = json.loads(arg)
+    dev = torch.device(spec["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    Z, outs = mosaic_arrays(spec, "r+")
+    ntt.mosaic_terrain_products(Z, checkpoint=spec["checkpoint"], out=outs,
+                                device=dev, **spec["kw"])
+    return 0
+
+
+def crc_of(arrays, band=2048):
+    """CRC-32 of arrays' bytes, in row bands (mosaic outputs on disk)."""
+    crc = 0
+    for a in arrays:
+        for r0 in range(0, a.shape[0], band):
+            crc = zlib.crc32(np.ascontiguousarray(
+                a[r0:r0 + band]).view(np.uint8).data, crc)
+    return crc
+
+
+@contextlib.contextmanager
+def recorded_loads(cuda_scan, seen):
+    """Within the block, every tile-path launch records its array's shape
+    and load path (``cuda_scan._tile_load``: 1 TMA, 0 cp.async) in
+    ``seen``."""
+    real = cuda_scan._tile_load
+
+    def rec(Z):
+        load = real(Z)
+        seen.append((tuple(Z.shape), load))
+        return load
+
+    cuda_scan._tile_load = rec
+    try:
+        yield
+    finally:
+        cuda_scan._tile_load = real
+
+
+def mosaic_path(ntt, cuda_scan, dev, tmp, card):
+    """Phase 17: the out-of-core mosaic disk to disk.  A seeded
+    32768^2 float32 DEM (``write_mosaic_dem``, 4.3 GB; 24576^2 or 16384^2
+    where the disk is short, the cut printed first) in an ``np.memmap``,
+    the default trio (geomorphons, objects, moran) at lookup 25, windows
+    5, gi_radius 3, tile 4096, exact wire, streamed (``device_input=
+    False``) into three output memmaps.  A child process runs it with a
+    checkpoint and is SIGKILLed once the checkpoint lists half the tiles;
+    the run resumes here (K1 counted: one launch per remaining tile, on
+    the TMA load); the outputs' CRC is kept, an uninterrupted run without
+    checkpoint rewrites them under one ``torch.profiler`` pass (K1 one
+    launch per tile, idle share) and must give the same CRC; then three
+    random interior 2048^2 windows recomputed from the DEM with the
+    untiled functions on the card: classes and objects equal, Moran
+    within 1e-5.  Returns each kernel's launches on the counted run."""
+    import shutil
+    import signal
+    free = shutil.disk_usage(tmp).free
+    fits = [s for s in MOSAIC_SIDES if 1.05 * s * s * MOSAIC_PX_BYTES < free]
+    check(bool(fits), f"{free / 1e9:.1f} GB free at {tmp}: no mosaic fits")
+    side = fits[0]
+    if side != MOSAIC_SIDES[0]:
+        emit(phase="mosaic_cut", side=side, wanted=MOSAIC_SIDES[0],
+             free_gb=free / 1e9, needed_gb=1.05 * MOSAIC_SIDES[0] ** 2
+             * MOSAIC_PX_BYTES / 1e9)
+    ts = MOSAIC_KW["tile_size"]
+    n_tiles = (-(-side // ts)) ** 2
+    ov = ntt.pipelines.mosaic.required_overlap(
+        MOSAIC_KW["lookup_pixels"], np.arange(1, MOSAIC_KW["windows"] + 1),
+        MOSAIC_KW["gi_radius"])
+    spec = dict(side=side, device=str(dev), kw=MOSAIC_KW,
+                dem=str(Path(tmp) / "dem.f32"),
+                outs=[str(Path(tmp) / f"{p}.out") for p in
+                      ("classes", "objects", "moran")],
+                checkpoint=str(Path(tmp) / "mosaic.json"))
+    t0 = time.perf_counter()
+    write_mosaic_dem(spec["dem"], side, dev)
+    dem_s = time.perf_counter() - t0
+    Z, outs = mosaic_arrays(spec, "w+")
+    del outs
+
+    log = Path(tmp) / "child.log"
+    t0 = time.perf_counter()
+    with open(log, "w") as f:
+        child = subprocess.Popen(
+            [sys.executable, str(HERE / "chip_smoke.py"), "--mosaic-child",
+             json.dumps(spec)], cwd=HERE, stdout=f, stderr=subprocess.STDOUT)
+    try:
+        while child.poll() is None and time.perf_counter() - t0 < 300:
+            try:
+                with open(spec["checkpoint"]) as f:
+                    if len(json.load(f)) >= n_tiles // 2:
+                        break
+            except (FileNotFoundError, json.JSONDecodeError):
+                pass
+            time.sleep(0.02)
+        child.send_signal(signal.SIGKILL)
+    finally:
+        if child.poll() is None:
+            child.kill()
+        child.wait()
+    to_kill_s = time.perf_counter() - t0
+    tail = log.read_text()[-2000:]
+    check(child.returncode == -signal.SIGKILL,
+          f"the mosaic child ended by itself (rc {child.returncode}): {tail}")
+    ckpt = ntt.TileCheckpoint(spec["checkpoint"])
+    done = len(ckpt.done)
+    check(0 < done < n_tiles, f"killed with {done} of {n_tiles} tiles done")
+
+    Z, outs = mosaic_arrays(spec, "r+")
+    reset_counts(cuda_scan)
+    loads, resumed_ps = [], {}
+    t0 = time.perf_counter()
+    with recorded_loads(cuda_scan, loads):
+        ntt.mosaic_terrain_products(Z, checkpoint=spec["checkpoint"],
+                                    out=outs, phase_stats=resumed_ps,
+                                    device=dev, **MOSAIC_KW)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    resumed = read_counts(cuda_scan)
+    check(resumed["K1"] == n_tiles - done
+          and sum(resumed.values()) == resumed["K1"],
+          f"the resumed run launched {resumed}: one K1 per remaining tile")
+    check(len(ntt.TileCheckpoint(spec["checkpoint"]).done) == n_tiles,
+          "the resumed run left tiles unmarked")
+    check({s for s, _ in loads} == {(ts + 2 * ov,) * 2}
+          and {lo for _, lo in loads} == {1},
+          f"mosaic_path's K1 tiles took {set(loads)}: expected TMA on "
+          f"{ts + 2 * ov}^2")
+    for o in outs:
+        o.flush()
+    crc_resumed = crc_of(outs)
+
+    reset_counts(cuda_scan)
+    full_ps = {}
+    _, prof = device_profile(lambda: ntt.mosaic_terrain_products(
+        Z, out=outs, phase_stats=full_ps, device=dev, **MOSAIC_KW))
+    launches = read_counts(cuda_scan)
+    check(launches["K1"] == n_tiles
+          and sum(launches.values()) == n_tiles,
+          f"the uninterrupted mosaic launched {launches}: one K1 per tile")
+    for o in outs:
+        o.flush()
+    check(crc_of(outs) == crc_resumed,
+          "the killed-and-resumed mosaic differs from the uninterrupted one")
+
+    with open(spec["checkpoint"] + ".moments") as f:
+        mom = json.load(f)
+    rng = np.random.default_rng(11)
+    windows = np.arange(1, MOSAIC_KW["windows"] + 1)
+    w = MOSAIC_WINDOW
+    checked = []
+    for _ in range(3):
+        r0, c0 = (int(v) for v in rng.integers(ov, side - ov - w, 2))
+        blk = torch.from_numpy(np.array(Z[r0 - ov:r0 + w + ov,
+                                          c0 - ov:c0 + w + ov])).to(dev)
+        core = np.s_[ov:ov + w, ov:ov + w]
+        G = ntt.geomorphons(blk, 1, MOSAIC_KW["lookup_pixels"], 1)[core]
+        O = ntt.progressive_filter(blk, windows, 1, .15)[core]
+        M = ntt.local_morans_i(blk, MOSAIC_KW["gi_radius"], mean=mom["mean"],
+                               s2=mom["s2"])[core]
+        sl = np.s_[r0:r0 + w, c0:c0 + w]
+        check(np.array_equal(G.cpu().numpy(), outs[0][sl]),
+              f"mosaic classes differ from geomorphons at {r0, c0}")
+        check(np.array_equal(O.cpu().numpy(), outs[1][sl]),
+              f"mosaic objects differ from progressive_filter at {r0, c0}")
+        merr = float(np.nanmax(np.abs(M.cpu().numpy() - outs[2][sl])))
+        check(np.array_equal(np.isnan(M.cpu().numpy()), np.isnan(outs[2][sl]))
+              and merr <= MORAN_TOL,
+              f"mosaic Moran at {r0, c0}: max |diff| {merr}")
+        checked.append({"at": [r0, c0], "moran_max_abs_diff": merr})
+    px = side * side
+    emit(phase="mosaic_path", card=card, side=side, tiles=n_tiles,
+         tile=ts + 2 * ov, overlap=ov, dem_write_s=dem_s,
+         killed_at_tiles=done, child_to_kill_s=to_kill_s,
+         resumed=dict(seconds=resume_s, tiles=n_tiles - done,
+                      mpix_s=(n_tiles - done) * ts * ts / resume_s / 1e6,
+                      phase_stats=resumed_ps, launches_by_kernel=resumed),
+         uninterrupted=dict(mpix_s=px / prof["wall_ms"] * 1e3 / 1e6,
+                            phase_stats=full_ps, launches_by_kernel=launches,
+                            profile=prof,
+                            moments_and_setup_s=prof["wall_ms"] / 1e3
+                            - full_ps["total"]),
+         k1_tile_load="tma", resume_equals_uninterrupted=True,
+         windows_checked=checked)
+    return {"K1": launches["K1"], "K2": launches["K2"]}
+
+
+def tuple_readback(ntt, dev, timeout=120.0):
+    """``tiled_apply`` on the card with ``fn`` returning k float32 planes
+    of one shape (k = 2 and 4) over 16 streamed tiles at pipeline depths 0
+    and 2: every plane equal to the host's product, and no wait for a
+    readback buffer that only a stored tile could return (a call that has
+    not returned after ``timeout`` seconds fails the run).  Returns the
+    cases run."""
+    import threading
+    Z = np.random.default_rng(5).standard_normal((256, 256)).astype(
+        np.float32)
+    cases = []
+    for k in (2, 4):
+        for depth in (0, 2):
+            box = {}
+
+            def call():
+                box["out"] = ntt.tiled_apply(
+                    lambda t: tuple(t * (i + 1) for i in range(k)), Z, 64, 4,
+                    pipeline_depth=depth, device_input=False, device=dev)
+
+            th = threading.Thread(target=call, daemon=True)
+            th.start()
+            th.join(timeout)
+            check(not th.is_alive(),
+                  f"tiled_apply with {k} results per tile at depth {depth} "
+                  f"has not returned after {timeout} s")
+            check("out" in box and all(
+                np.array_equal(g, Z * (i + 1)) for i, g in enumerate(
+                    box["out"])), f"tiled_apply's {k} results per tile at "
+                  f"depth {depth} differ from the host's")
+            cases.append([k, depth])
+    return cases
+
+
+def mosaic_vs_plain(ntt, cuda_scan, dev, card):
+    """Phase 18: all six products at 8192^2 (bench_input), lookup 31
+    (overlap 31: 4158^2 tiles, the cp.async load), windows 5, gi_radius 3,
+    tile 4096: the streamed run (K1 and K2 counted: one launch each per
+    tile, every tile on cp.async), the device-resident run and a one-card
+    2 x 2 mesh equal to it bit for bit, the compact wire equal where it is
+    exact (classes, objects, Gi bins) and the bf16 rounding of the exact
+    wire elsewhere, and on a 1024^2 crop (tile 512) the card against the
+    CPU's plain versions: classes, objects and Gi bins equal, Moran within
+    1e-5, openness within 5e-5 degrees.  Then K1 and K2 timed on one
+    mosaic tile each (mosaic_path's 4156^2 at lookup 25, this phase's
+    4158^2 at lookup 31) against their plain versions, with bounds.
+    ``tuple_readback`` runs after the warm-up."""
+    from neilpy_tpu_torch.pipelines.mosaic import (_bf16_bits, _bf16_to_f32,
+                                                   required_overlap)
+    Z = bench_input(MAIN_SHAPE)
+    kw = dict(VS_PLAIN_KW, device=dev)
+    ts = kw["tile_size"]
+    n_tiles = (-(-MAIN_SHAPE[0] // ts)) * (-(-MAIN_SHAPE[1] // ts))
+
+    def same(a, b):
+        return a.dtype == b.dtype and np.array_equal(
+            a, b, equal_nan=a.dtype.kind == "f")
+
+    walls = {}
+
+    def run(name, Zin, **extra):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = ntt.mosaic_terrain_products(Zin, **{**kw, **extra})
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    run("warm-up", Z[:1024, :1024], tile_size=512)
+    readback_cases = tuple_readback(ntt, dev)
+    reset_counts(cuda_scan)
+    loads = []
+    with recorded_loads(cuda_scan, loads):
+        A = run("streamed", Z, device_input=False)
+    counts = read_counts(cuda_scan)
+    check(counts["K1"] == n_tiles and counts["K2"] == n_tiles
+          and sum(counts.values()) == 2 * n_tiles,
+          f"the six-product mosaic launched {counts}: one K1 and one K2 "
+          "per tile")
+    tile = ts + 2 * kw["lookup_pixels"]
+    check(set(loads) == {((tile, tile), 0)},
+          f"mosaic_vs_plain's tiles took {set(loads)}: expected cp.async "
+          f"on {tile}^2")
+    for name, extra in (("resident", dict(device_input="auto")),
+                        ("mesh_2x2", dict(mesh=ntt.dist.make_mesh(
+                            [dev] * 4)))):
+        got = run(name, Z, **extra)
+        check(all(same(a, b) for a, b in zip(got, A)),
+              f"the {name} mosaic differs from the streamed one")
+        del got
+    C = run("compact", Z, wire="compact")
+    for i, p in enumerate(SIX):
+        exact = p in ("geomorphons", "objects", "gi")
+        if exact:
+            ok = same(C[i], A[i])
+        else:
+            bf = _bf16_bits(torch.from_numpy(A[i]))
+            ok = same(C[i], _bf16_to_f32(bf.numpy().view(np.uint16)))
+        check(ok, f"compact {p} is not the exact wire's "
+                  f"{'value' if exact else 'bf16 rounding'}")
+    del A, C
+
+    crop = np.ascontiguousarray(Z[:VS_PLAIN_CROP, :VS_PLAIN_CROP])
+    on_card = run("crop_card", crop, tile_size=512)
+    on_cpu = run("crop_cpu", crop, tile_size=512, device="cpu")
+    errs = {}
+    for p, a, b in zip(SIX, on_card, on_cpu):
+        if p in ("geomorphons", "objects", "gi"):
+            check(same(a, b), f"crop {p}: card != CPU")
+            continue
+        check(np.array_equal(np.isnan(a), np.isnan(b))
+              and np.array_equal(np.isinf(a), np.isinf(b)),
+              f"crop {p}: NaN/inf at other pixels")
+        fin = np.isfinite(a)
+        errs[p] = float(np.max(np.abs(a[fin] - b[fin]))) if fin.any() else 0.
+        tol = MORAN_TOL if p == "moran" else OPENNESS_TOL
+        check(errs[p] <= tol, f"crop {p}: card vs CPU {errs[p]} above {tol}")
+
+    tiles = {}
+    mosaic_tile = MOSAIC_KW["tile_size"] + 2 * required_overlap(
+        MOSAIC_KW["lookup_pixels"], np.arange(1, MOSAIC_KW["windows"] + 1),
+        MOSAIC_KW["gi_radius"])
+    for kid, lookup, side, mode in (
+            ("K1", MOSAIC_KW["lookup_pixels"], mosaic_tile, None),
+            ("K2", VS_PLAIN_KW["lookup_pixels"], tile, "openness")):
+        Zt = torch.from_numpy(np.ascontiguousarray(Z[:side, :side])).to(dev)
+        if mode is None:
+            fns = {"kernel": cuda_scan.openness_counts_cuda,
+                   "plain": cuda_scan.openness_counts_torch}
+            call = lambda f: f(Zt, cellsize=1.0, lookup_pixels=lookup,
+                               threshold_angle=1.0)
+            nbytes, fold = 6 * side * side, 0
+        else:
+            fns = {"kernel": cuda_scan.openness_reduced_cuda,
+                   "plain": cuda_scan.openness_reduced_torch}
+            call = lambda f: f(Zt, "openness", cellsize=1.0,
+                               lookup_pixels=lookup)
+            nbytes = 12 * side * side
+            fold = fold_ops("openness", side * side)
+        got, want = call(fns["kernel"]), call(fns["plain"])
+        if mode is None:
+            check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                  f"{kid} on the {side}^2 mosaic tile != plain")
+        else:
+            reduced_err(cuda_scan, mode, got, want,
+                        f"{kid} on the {side}^2 mosaic tile")
+        times = time_turns(fns, call)
+        bound_ms, side_by = bound(ladder_steps(
+            side, side, cuda_scan._ladder(lookup)), nbytes, fold)
+        tiles[kid] = dict(
+            tile=[side, side], lookup=lookup, ladder="exact",
+            route="dynamic", tile_load="tma" if cuda_scan._tile_load(Zt)
+            else "cp.async", tile_ms=statistics.median(times["kernel"]),
+            tile_plain_ms=statistics.median(times["plain"]),
+            tile_bound_ms=bound_ms, tile_bound_by=side_by,
+            vs_plain_launches=counts[kid])
+    emit(phase="mosaic_vs_plain", card=card, shape=list(MAIN_SHAPE),
+         products=list(SIX), tile=tile, launches_by_kernel=counts,
+         walls_s=walls, crop=VS_PLAIN_CROP, crop_max_abs_diff=errs,
+         tiles=tiles, tuple_readback_k_depth=readback_cases)
+    return tiles
+
+
 def main():
+    if sys.argv[1:2] == ["--mosaic-child"]:
+        return mosaic_child(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing run",
               file=sys.stderr)
@@ -2702,12 +3232,14 @@ def main():
                             cuda_scan, Zd).items()]:
         max_err[kid] = max(max_err[kid], err)
     res = phase("timings", timings, ntt, cuda_scan, Zd, mesh, card, share)
-    cloud = phase("smrf_path", smrf_path, ntt, cuda_scan, dev)
-    phase("inpaint_scale", inpaint_scale, ntt, dev)
+    cloud, smrf_prof = phase("smrf_path", smrf_path, ntt, cuda_scan, dev)
+    fills = phase("inpaint_scale", inpaint_scale, ntt, dev)
     phase("smrf_oracle", smrf_oracle, ntt, dev)
     with tempfile.TemporaryDirectory() as tmp:
         phase("las_path", las_path, ntt, dev, tmp, cloud)
-    del cloud
+    phase("sharded_smrf_path", sharded_smrf_path, ntt, cuda_scan, dev,
+          cloud, smrf_prof, fills)
+    del cloud, fills
     with tempfile.TemporaryDirectory() as tmp:
         Z, dem = write_dem(ntt, tmp)
         Zdem = phase("surface_path", surface_path, ntt, cuda_scan, dev,
@@ -2717,6 +3249,11 @@ def main():
     phase("sharded_surface", sharded_surface, ntt, dev, Zdem)
     phase("surface_timing", surface_timing, ntt, dev, Zdem, card)
     del Zdem
+    with tempfile.TemporaryDirectory() as tmp:
+        mosaic_launches = phase("mosaic_path", mosaic_path, ntt, cuda_scan,
+                                dev, tmp, card)
+    mosaic_tiles = phase("mosaic_vs_plain", mosaic_vs_plain, ntt, cuda_scan,
+                         dev, card)
     emit(phase="walls", seconds=walls, total=sum(walls.values()))
 
     # each kernel's launches on the path that runs it
@@ -2728,6 +3265,12 @@ def main():
                 "K4": sharded_counts["K4"]}
     kernels = kernel_table(cuda_scan, res, launches, max_err, Zd,
                            sharded_blocks(Zd, mesh))
+    for k in kernels:
+        if k["id"] in mosaic_tiles:
+            tiles = dict(mosaic_tiles[k["id"]])
+            k["mosaic"] = dict(launches={
+                "mosaic_path": mosaic_launches[k["id"]],
+                "mosaic_vs_plain": tiles.pop("vs_plain_launches")}, **tiles)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

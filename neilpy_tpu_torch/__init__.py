@@ -14,7 +14,9 @@ disk-opening ladder -> spline lift -> ground labels; ``core/grid``,
 products (``ops/surface``: slope, aspect, hillshade, every curvature
 family, TPI, ...; ``viz/shading``: Swiss and colour-table shading,
 Brassel's atmospheric perspective; ``ops/stats``: Getis-Ord Gi/Gi*,
-Moran's I and the accuracy metrics; their sharded forms in ``dist``)::
+Moran's I and the accuracy metrics; their sharded forms in ``dist``),
+the sharded SMRF (``dist.sharded_smrf``) and the out-of-core mosaic
+stream (``tiled_apply``, ``mosaic_terrain_products``)::
 
     import neilpy_tpu_torch as ntt
     Z, meta = ntt.imread("dem.tif")
@@ -34,6 +36,9 @@ Moran's I and the accuracy metrics; their sharded forms in ``dist``)::
     ntt.imwrite("hillshade.tif", H, meta)
     rgb = ntt.swiss_shading(Z, cellsize=meta["cellsize"])
     Gi, P, sig = ntt.rasterGi(Z, ntt.disk(5), star=True)
+    G, O, MI = ntt.mosaic_terrain_products(ntt.GeoTiffSource("big.tif"),
+                                           tile_size=4096,
+                                           checkpoint="mosaic.json")
 
 Numpy input goes to the CUDA device by default, where the scan ladder
 runs in hand-written kernels (``csrc/*.cu``, built with nvcc at first
@@ -90,6 +95,7 @@ from .ops.morphology import (grey_erosion_disk, grey_dilation_disk,
                              opening_disk, opening, erosion, dilation)
 from .ops.spline import interp_spline_2d
 from .pipelines.smrf import smrf, smrf_las, progressive_filter
+from .dist.tiling import tiled_apply, apply_parallel, TileCheckpoint
 
 # ----- statistics -----------------------------------------------------
 from .ops.stats import (gi_formula, gistar_formula, rasterGi, morans_i,
@@ -102,5 +108,6 @@ from .viz.shading import (swiss_shading, colortable_shade, swiss_lut,
                           brassel_atmospheric_perspective, corner_lut,
                           lut_shade)
 
-# ----- multi-device (single-process mesh) ----------------------------
+# ----- multi-device (single-process mesh) / out-of-core --------------
 from . import dist
+from .pipelines.mosaic import mosaic_terrain_products

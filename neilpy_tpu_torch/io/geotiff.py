@@ -183,9 +183,10 @@ class GeoTiffSource:
     only the strips/tiles a requested window intersects (with a small
     LRU block cache for overlapping windows).
 
-    Carried over only as far as :func:`read_geotiff` needs it; the
-    JAX package's array-like surface (``__getitem__``, ``__array__``)
-    serves the out-of-core pipeline, which comes with that slice.
+    Array-like (``shape``, ``dtype``, ``nbytes``, ``src[r0:r1, c0:c1]``,
+    ``np.asarray(src)``), so ``dist.tiled_apply`` and
+    ``pipelines.mosaic`` stream a (Big)TIFF from disk window by window
+    without materialising it.
     """
 
     def __init__(self, fn, cache_bytes=64 << 20, level=0):
@@ -352,6 +353,56 @@ class GeoTiffSource:
         if self.nbands == 1:
             return (self.height, self.width)
         return (self.height, self.width, self.nbands)
+
+    @property
+    def nbytes(self):
+        n = self.height * self.width * self.nbands
+        return n * self.dtype.itemsize
+
+    def __len__(self):
+        return self.height
+
+    def __array__(self, dtype=None, copy=None):
+        arr = self._window(0, self.height, 0, self.width)
+        return arr.astype(dtype) if dtype is not None else arr
+
+    def __getitem__(self, key):
+        """int/slice indexing (step 1) of rows, columns and, for a
+        multi-band raster, the band; decodes only the touched blocks."""
+        if not isinstance(key, tuple):
+            key = (key,)
+        if len(key) > self.ndim:
+            raise IndexError("too many indices for GeoTiffSource")
+        sq = []
+        bounds = []
+        for ax, (k, n) in enumerate(zip(key, (self.height, self.width))):
+            if isinstance(k, slice):
+                start, stop, step = k.indices(n)
+                if step != 1:
+                    raise IndexError(
+                        "GeoTiffSource supports step-1 slices only")
+                bounds.append((start, max(stop, start)))
+            elif isinstance(k, (int, np.integer)):
+                k = int(k)
+                if k < 0:
+                    k += n
+                if not 0 <= k < n:
+                    raise IndexError(f"index {k} out of range (axis {ax})")
+                bounds.append((k, k + 1))
+                sq.append(ax)
+            else:
+                raise IndexError(
+                    "GeoTiffSource supports int/slice indexing only")
+        while len(bounds) < 2:
+            bounds.append((0, (self.height, self.width)[len(bounds)]))
+        (r0, r1), (c0, c1) = bounds
+        arr = self._window(r0, r1, c0, c1)
+        band = key[2] if len(key) == 3 else None
+        if band is not None:
+            arr = arr[:, :, band]
+        for ax in reversed(sq):
+            arr = np.squeeze(arr, axis=ax)
+        return arr
 
     # ---- decoding ----------------------------------------------------
     def _block(self, p, by, bx):

@@ -63,40 +63,73 @@ def _degree(shape, dtype=torch.float32, device=None):
             + (cols > 0).to(dtype) + (cols < W - 1).to(dtype))
 
 
-def _cg(apply_fn, b, x0, precond, tol, maxiter, flexible, check_every):
-    """CG with the stop test on the device (see the module docstring).
-    Returns (x, iterations, host syncs)."""
+class _Tensor:
+    """The vector operations ``_cg`` runs on, for one tensor.  The sharded
+    fill (``dist/smrf._Layout``) gives the same five for lists of blocks:
+    ``dot`` returns a 0-d tensor, ``scalar`` puts such a tensor where
+    ``axpy`` and ``where`` take it."""
+
+    @staticmethod
+    def dot(a, b):
+        return torch.sum(a * b)
+
+    @staticmethod
+    def scalar(s):
+        return s
+
+    @staticmethod
+    def sub(a, b):
+        return a - b
+
+    @staticmethod
+    def axpy(a, s, b, sign=1):
+        """a + s b (a - s b for ``sign`` < 0)."""
+        return a + s * b if sign > 0 else a - s * b
+
+    @staticmethod
+    def where(c, a, b):
+        return torch.where(c, a, b)
+
+
+def _cg(apply_fn, b, x0, precond, tol, maxiter, flexible, check_every,
+        space=_Tensor):
+    """CG with the stop test on the device (see the module docstring), on
+    the vectors of ``space`` (``_Tensor``'s operations).  Returns (x,
+    iterations, host syncs)."""
+    V = space
     if precond is None:
         precond = lambda r: r
-    bnorm = torch.sqrt(torch.sum(b * b))
+    bnorm = torch.sqrt(V.dot(b, b))
     atol2 = (tol * torch.clamp_min(bnorm, 1e-30)) ** 2
 
     x = x0
-    r = b - apply_fn(x0)
+    r = V.sub(b, apply_fn(x0))
     z = precond(r)
     p = z
-    rz = torch.sum(r * z)
-    it = torch.zeros((), dtype=torch.int64, device=b.device)
-    done = ~(torch.sum(r * r) > atol2)  # a NaN residual stops, as in JAX
+    rz = V.dot(r, z)
+    it = torch.zeros((), dtype=torch.int64, device=bnorm.device)
+    done = ~(V.dot(r, r) > atol2)  # a NaN residual stops, as in JAX
     syncs = iterations = 0
-    for n in range(1, maxiter + 1):
+    for n in range(1, int(maxiter) + 1):
         Ap = apply_fn(p)
-        alpha = rz / torch.sum(p * Ap)
-        x_new = x + alpha * p
-        r_new = r - alpha * Ap
+        alpha = V.scalar(rz / V.dot(p, Ap))
+        x_new = V.axpy(x, alpha, p)
+        r_new = V.axpy(r, alpha, Ap, -1)
         z = precond(r_new)
-        rz_new = torch.sum(r_new * z)
+        rz_new = V.dot(r_new, z)
         if flexible:
-            beta = (rz_new - torch.sum(r * z)) / rz
+            # Polak-Ribiere: robust to a nonlinear preconditioner
+            beta = (rz_new - V.dot(r, z)) / rz
         else:
             beta = rz_new / rz
-        p_new = z + beta * p
-        x = torch.where(done, x, x_new)
-        r = torch.where(done, r, r_new)
-        p = torch.where(done, p, p_new)
+        p_new = V.axpy(z, V.scalar(beta), p)
+        d = V.scalar(done)
+        x = V.where(d, x, x_new)
+        r = V.where(d, r, r_new)
+        p = V.where(d, p, p_new)
         rz = torch.where(done, rz, rz_new)
         it = it + (~done).to(it.dtype)
-        done = done | ~(torch.sum(r * r) > atol2)
+        done = done | ~(V.dot(r, r) > atol2)
         if n % check_every == 0 or n == maxiter:
             # one read of the flag and the count: the only host sync
             syncs += 1

@@ -99,7 +99,9 @@ def rasterGi(X, footprint=1, mode="nearest", apply_correction=False,
     semantics: weights are not applied), and its centre cell decides
     ``star``.  ``global_mean``/``global_var``/``global_n`` override the
     whole-map moments and finite-cell count (star path only), so a mosaic
-    processed tile-wise z-scores against the global statistics."""
+    processed tile-wise z-scores against the global statistics; each may
+    be a number or a float32 scalar tensor on X's device (no host copy,
+    so no stream sync)."""
     X = as_raster(X, device)
 
     if np.isscalar(footprint):
@@ -115,7 +117,8 @@ def rasterGi(X, footprint=1, mode="nearest", apply_correction=False,
     finite = torch.isfinite(X)
     nf = finite.sum().to(torch.float32)
     if star and global_n is not None:
-        nf = torch.tensor(global_n, dtype=torch.float32, device=X.device)
+        nf = torch.as_tensor(global_n, dtype=torch.float32,
+                             device=X.device)
 
     if not star:
         gm = (torch.nansum(X) - X) / (nf - 1)
@@ -124,9 +127,11 @@ def rasterGi(X, footprint=1, mode="nearest", apply_correction=False,
         gv = torch.where(finite, gv, torch.nan)
     else:
         gm = (_nanmean(X) if global_mean is None else
-              torch.tensor(global_mean, dtype=torch.float32, device=X.device))
+              torch.as_tensor(global_mean, dtype=torch.float32,
+                              device=X.device))
         gv = (_nanstd(X) ** 2 if global_var is None else
-              torch.tensor(global_var, dtype=torch.float32, device=X.device))
+              torch.as_tensor(global_var, dtype=torch.float32,
+                              device=X.device))
 
     fp = fp != 0
     w_neighbors = binary_footprint_sum(finite.to(torch.float32), fp,
@@ -204,18 +209,19 @@ def local_morans_i(X, footprint=1, mode="nearest", mean=None, s2=None,
     """Local Moran's I (Anselin LISA) per cell with binary weights.
 
     ``mean``/``s2`` override the global moments, so a mosaic processed
-    tile-wise z-scores each tile against the global statistics."""
+    tile-wise z-scores each tile against the global statistics; numbers
+    or float32 scalar tensors on X's device."""
     X = as_raster(X, device)
     fp = _lag_footprint(footprint, drop_centre=False)
     finite = torch.isfinite(X)
     nf = finite.sum().to(torch.float32)
     xbar = (_nanmean(X) if mean is None else
-            torch.tensor(mean, dtype=torch.float32, device=X.device))
+            torch.as_tensor(mean, dtype=torch.float32, device=X.device))
     zdev = torch.where(finite, X - xbar, 0.0)
     if s2 is None:
         s2 = torch.sum(zdev ** 2) / nf
     else:
-        s2 = torch.tensor(s2, dtype=torch.float32, device=X.device)
+        s2 = torch.as_tensor(s2, dtype=torch.float32, device=X.device)
     lag = binary_footprint_sum(zdev, fp, mode=mode)
     I = (zdev / s2) * lag
     return torch.where(finite, I, torch.nan)

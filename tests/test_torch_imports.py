@@ -36,7 +36,10 @@ def test_the_guard_sees_every_module():
                    "neilpy_tpu_torch/ops/pointgrid.py",
                    "neilpy_tpu_torch/ops/surface.py",
                    "neilpy_tpu_torch/ops/stats.py",
-                   "neilpy_tpu_torch/viz/shading.py"):
+                   "neilpy_tpu_torch/viz/shading.py",
+                   "neilpy_tpu_torch/dist/smrf.py",
+                   "neilpy_tpu_torch/dist/tiling.py",
+                   "neilpy_tpu_torch/pipelines/mosaic.py"):
         assert expect in names
     assert forbidden("jax.numpy") and forbidden("neilpy_tpu.ops.inpaint")
     assert forbidden("sklearn.metrics") and forbidden("matplotlib.pyplot")
