@@ -6,7 +6,10 @@ Run from the root of a checkout, with no arguments::
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``neilpy_tpu_torch/csrc`` (nvcc,
-into the git-ignored ``build/``) and holds each against its plain
+into the git-ignored ``build/``) and its three host libraries from
+``neilpy_tpu_torch/native`` (g++: the TIFF codec, the LAS decoder and the
+point binning; ``host_build`` fails unless all three load, so no Python
+fallback stands in for them here), and holds each kernel against its plain
 PyTorch version on the card: K1 (openness counts), K2 (the fused
 openness / skyview / ternary reduction), K3 (the per-direction extrema
 planes, with and without a global origin), K4 (the counts of one
@@ -43,6 +46,14 @@ with ``imread``, at lookup 50:
   ``geomorphons2(use_negative_openness=False, outfile=...)`` ->
   ``imwrite`` of the positive openness (K5's plan of K2 x 3, K2 x 1,
   K3 x 2);
+- ``codec_path``: the DEM as ZSTD strips and tiles (the port's writer;
+  deflate where libzstd is absent) and as LZW (PIL's libtiff) ->
+  ``imread`` -> ``geomorphons`` exact and fast (K5/counts, K1) equal to
+  main_path's classes of the uncompressed DEM -> the classes as ZSTD and
+  (a 2048^2 crop) LZW, read back equal -> ``mosaic_terrain_products``
+  over a ``GeoTiffSource`` of the ZSTD tiles (six products, K1 and K2 per
+  tile) equal to the in-memory call; each codec's MB/s, the Python
+  decoders' on a 2048^2 crop;
 - ``sharded_path``: ``dist.sharded_geomorphons`` on ``make_mesh()`` (the
   visible cards; 1 x 1 on one card) and on a 2 x 2 mesh naming the card
   four times (exact and fast; K4 x 4 each), ``sharded_openness`` and
@@ -91,9 +102,15 @@ K1-K5 (each phase raises on failure):
   on the port's ``disk`` and ``bin_points``) on tests/test_smrf.py's
   building scene, and at 200k points over 400 m (windows 12) equal to the
   port's CPU exact labels, cells differing only at threshold ties;
-- ``las_path``: ``write_las`` the 5M-point cloud, ``smrf_las`` it, read it
-  back: classes equal ``smrf``'s labels on the decoded points, every byte
-  but the classification bits unchanged.
+- ``las_path``: ``write_las`` the 5M-point cloud, ``smrf_las`` it (both
+  passes through the native decoder's chunks, counted; a whole-file read
+  fails the phase), read it back: classes equal ``smrf``'s labels on the
+  decoded points, every byte but the classification bits unchanged; the
+  native decoder equal to ``read_las`` on every field, native binning
+  equal to numpy's off the cell edges, ``create_dem_from_las`` streamed
+  in 1M-point chunks equal to its one-shot grid and its ``read_las``
+  branch bit for bit; decode Mpts/s, gridding ms and ``smrf_las``'s peak
+  host memory printed.
 
 Then the DEM-products slice, plain torch ops on the card as well (none
 of K1-K5; each phase raises on failure):
@@ -162,6 +179,7 @@ exits non-zero without that line; so does a machine with no CUDA device.
 
 import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -2070,26 +2088,112 @@ def smrf_oracle(ntt, dev):
          mid_exact_s={"card": card_s, "cpu": cpu_s})
 
 
+LAS_CHUNK = 1_000_000          # create_dem_from_las's streamed batches
+LAS_FIELDS = ("x", "y", "z", "intensity", "class", "return_number",
+              "return_max")
+EDGE_TOL = 1e-6                # cells: native and numpy bins differ only here
+
+
+def rss_mib():
+    """This process's resident set (VmRSS of /proc/self/status), MiB."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 1024
+    raise RuntimeError("no VmRSS in /proc/self/status")
+
+
+class PeakRss:
+    """Within the block, a thread samples the resident set every
+    ``period`` seconds; ``before`` and ``peak`` in MiB (the kernel's own
+    high-water mark cannot be reset everywhere)."""
+
+    def __init__(self, period=0.005):
+        import threading
+        self.period, self._stop = period, threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+
+    def _sample(self):
+        while not self._stop.wait(self.period):
+            self.peak = max(self.peak, rss_mib())
+
+    def __enter__(self):
+        self.before = self.peak = rss_mib()
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, rss_mib())
+
+
+def grids_equal(a, b):
+    """Same shape, NaN at the same cells, equal values elsewhere."""
+    return (a.shape == b.shape and torch.equal(torch.isnan(a), torch.isnan(b))
+            and torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0)))
+
+
 def las_path(ntt, dev, tmp, cloud):
     """Phase 11: ``write_las`` the smrf_path cloud (PDRF 0), ``smrf_las``
-    it into a second file on the card, read that back: every class is
-    ``smrf``'s label on the file's decoded points, every byte but the
-    classification bits is unchanged, n_object + n_ground == n."""
+    it into a second file on the card (both passes through the native
+    decoder's chunks: their sizes are counted and ``read_las`` refuses
+    inside the call), read that back: every class is ``smrf``'s label on
+    the file's decoded points, every byte but the classification bits is
+    unchanged, n_object + n_ground == n.  Then the native decoder equals
+    ``read_las`` on every field, native binning equals numpy's but for
+    points within ``EDGE_TOL`` of a cell edge, and ``create_dem_from_las``
+    streamed in ``LAS_CHUNK`` batches equals its one-shot grid and its
+    ``read_las`` branch bit for bit, in the header's frame (which is the
+    points' frame: ``write_las`` writes a truthful header).  Decode,
+    gridding and the peak host memory of ``smrf_las`` are printed."""
+    import inspect
+    from neilpy_tpu_torch.io import las as las_py, las_native
+    from neilpy_tpu_torch.ops import pointgrid
     x, y, z = cloud
+    n = x.size
     src, out = str(Path(tmp) / "tile.las"), str(Path(tmp) / "classified.las")
     t0 = time.perf_counter()
     ntt.write_las(src, x, y, z, pdrf=0)
     write_s = time.perf_counter() - t0
+
+    chunks = []
+    real = las_native.read_las_chunks
+
+    def counted(*args, **kw):
+        for chunk in real(*args, **kw):
+            chunks.append(int(chunk["x"].size))
+            yield chunk
+
+    def whole(*args, **kw):
+        raise RuntimeError("smrf_las read the whole file through read_las")
+
+    with _switched(las_native, "read_las_chunks", counted), \
+            _switched(las_py, "read_las", whole), PeakRss() as rss:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, t, _, stats = ntt.smrf_las(src, out, device=dev, **SMRF_KW)
+        torch.cuda.synchronize()
+        smrf_las_s = time.perf_counter() - t0
+    step = inspect.signature(ntt.smrf_las).parameters["chunk_points"].default
+    per_pass = [min(step, n - i) for i in range(0, n, step)]
+    check(chunks == per_pass * 2,
+          f"smrf_las took decoder chunks of {chunks} points: expected "
+          f"{per_pass} in each of its two passes")
+
     t0 = time.perf_counter()
-    _, t, _, stats = ntt.smrf_las(src, out, device=dev, **SMRF_KW)
-    torch.cuda.synchronize()
-    smrf_las_s = time.perf_counter() - t0
-    _, df = ntt.read_las(src)
+    arrays = las_native.read_las_arrays(src)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hdr, df = ntt.read_las(src)
+    python_s = time.perf_counter() - t0
+    for key in LAS_FIELDS:
+        check(np.array_equal(arrays[key], np.asarray(df[key])),
+              f"read_las_arrays' {key} differs from read_las'")
     _, t2, _, is_obj = ntt.smrf(df.x, df.y, df.z, device=dev, **SMRF_KW)
-    hdr, dfo = ntt.read_las(out)
-    n = x.size
     want = np.where(is_obj.cpu().numpy(), 1, 2)
     check(t == t2, "smrf_las frame != smrf's frame on the decoded points")
+    _, dfo = ntt.read_las(out)
     check(np.array_equal(np.asarray(dfo["class"]) & 0x1F, want),
           "smrf_las classes differ from smrf's labels")
     check(stats["n_points"] == n and stats["n_object"] + stats["n_ground"]
@@ -2108,8 +2212,220 @@ def las_path(ntt, dev, tmp, cloud):
     check(np.array_equal(recs_in[:, keep], recs_out[:, keep])
           and np.array_equal(recs_in[:, 15] & 0xE0, recs_out[:, 15] & 0xE0),
           "smrf_las changed a byte other than the classification bits")
-    emit(phase="las_path", points=n, file_mb=raw_in.size / 2**20,
-         write_las_s=write_s, smrf_las_s=smrf_las_s, stats=stats)
+    del raw_in, raw_out, recs_in, recs_out, dfo
+
+    # binning: the native kernel against numpy on the decoded cloud
+    xd, yd = arrays["x"], arrays["y"]
+    bins, bin_ms = {}, {}
+    for name, native in (("native", True), ("numpy", False)):
+        t0 = time.perf_counter()
+        bins[name] = pointgrid.bin_points(xd, yd, 1, native=native)
+        bin_ms[name] = (time.perf_counter() - t0) * 1e3
+    (fn_, vn, shape, tn), (f0, v0, shape0, t0_) = bins["native"], bins["numpy"]
+    differ = (fn_ != f0) | (vn != v0)
+    col = (xd[differ] - tn.c) / tn.a
+    row = (tn.f - yd[differ]) / tn.a
+    on_edge = ((np.abs(col - np.round(col)) <= EDGE_TOL)
+               | (np.abs(row - np.round(row)) <= EDGE_TOL))
+    check(shape == shape0 and tuple(tn) == tuple(t0_) and on_edge.all(),
+          f"native binning differs from numpy off the cell edges "
+          f"({int((~on_edge).sum())} points)")
+    del bins, fn_, vn, f0, v0
+
+    # create_dem_from_las: streamed, one-shot, and the read_las branch
+    kw = dict(cellsize=1, bin_type="min", device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Gs, ts = ntt.create_dem_from_las(src, chunk_points=LAS_CHUNK, **kw)
+    torch.cuda.synchronize()
+    streamed_s = time.perf_counter() - t0
+    G1, t1 = ntt.create_dem_from_las(src, chunk_points=n, **kw)
+    with _switched(las_native, "native_available", lambda: False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        Gr, tr = ntt.create_dem_from_las(src, **kw)
+        torch.cuda.synchronize()
+        read_las_branch_s = time.perf_counter() - t0
+    frame = pointgrid._grid_frame(xd, yd, 1)[2]
+    check(tuple(ts) == tuple(t1) == tuple(tr) == tuple(frame),
+          "create_dem_from_las: the header frame != the points' frame")
+    check(Gs.is_cuda, "create_dem_from_las: the grid is not on the card")
+    check(grids_equal(Gs, G1) and grids_equal(Gs, Gr),
+          "create_dem_from_las streamed != one-shot != the read_las branch")
+    emit(phase="las_path", points=n, file_mb=os.path.getsize(src) / 2**20,
+         write_las_s=write_s, smrf_las_s=smrf_las_s, stats=stats,
+         smrf_las_decoder_chunks=chunks,
+         smrf_las_host_rss_mib=dict(before=rss.before, peak=rss.peak,
+                                    rise=rss.peak - rss.before),
+         decode_mpts_s={"native": n / native_s / 1e6,
+                        "python_read_las": n / python_s / 1e6},
+         binning_ms=bin_ms, binning_edge_points=int(differ.sum()),
+         create_dem_from_las_s={"streamed": streamed_s,
+                                "read_las_branch": read_las_branch_s},
+         chunk_points=LAS_CHUNK, grid=list(Gs.shape))
+
+
+# ----------------------------------------------------------------------
+# the host ingest slice: the native host libraries (g++), the TIFF codecs
+# on the raster path (K1, K2, K5/counts downstream)
+# ----------------------------------------------------------------------
+CODEC_CROP = 2048              # the Python codecs' raster side
+
+
+def host_build():
+    """Phase 1b: build the three host libraries from the checkout's
+    ``neilpy_tpu_torch/native/*.cpp`` (one g++ each, started together)
+    and fail unless the binning kernel, the LAS decoder and the TIFF
+    codec all load: no Python fallback stands in for them on the card."""
+    from concurrent.futures import ThreadPoolExecutor
+    from neilpy_tpu_torch import _host_build
+    from neilpy_tpu_torch.io import las_native, tiff_codec
+    from neilpy_tpu_torch.ops import binning_native
+    cxx = _host_build._cxx()
+    version = subprocess.run([cxx, "--version"], capture_output=True,
+                             text=True, timeout=60).stdout.splitlines()[0]
+
+    def timed(name):
+        t0 = time.perf_counter()
+        path = _host_build.build(name)
+        return name, str(path.relative_to(HERE)), time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(_host_build.NAMES)) as pool:
+        built = list(pool.map(timed, _host_build.NAMES))
+    available = {"binning": binning_native.native_available(),
+                 "las_decoder": las_native.native_available(),
+                 "tiffcodec": tiff_codec.codec_native_available()}
+    check(all(available.values()),
+          f"host libraries unavailable on the card: {available}")
+    emit(phase="host_build", gxx=version, flags=list(_host_build._flags(cxx)),
+         libraries={name: dict(path=path, build_s=secs)
+                    for name, path, secs in built},
+         available=available, zstd_available=tiff_codec.zstd_available())
+
+
+def codec_path(ntt, cuda_scan, dev, tmp, Z, G, G_fast, card):
+    """Phase 5b: compressed GeoTIFFs on the raster path.  Set-up: the
+    8192^2 DEM written with the port's writer as ZSTD strips and ZSTD
+    tiles (deflate where libzstd is absent, printed), and as LZW by PIL's
+    libtiff (a 2048^2 crop by the port's Python encoder where PIL cannot).
+    The counted run: ``imread`` each -> ``geomorphons`` exact (K5/counts)
+    and fast (K1) on the card -> the classes written as ZSTD and (a 2048^2
+    crop: the encoder is Python) as LZW and read back ->
+    ``mosaic_terrain_products`` over a ``GeoTiffSource`` of the ZSTD tiles
+    with mosaic_vs_plain's six products (K1 and K2 on each tile).  Every
+    decoded DEM equals the array, every class raster main_path's classes
+    of the uncompressed DEM, the read-back classes the written ones, and
+    the mosaic the same call on the in-memory array.  Rates: each codec's
+    encode and imread MB/s at full size (native), the Python LZW encoder
+    (the classes' crop) and the Python LZW and PackBits decoders against
+    the native ones on the 2048^2 crop of the classes."""
+    from PIL import Image
+    from neilpy_tpu_torch.io import tiff_codec
+    H, W = Z.shape
+    mb = Z.nbytes / 2**20
+    geo = dict(transform=ntt.from_origin(0.0, 10.0 * H, 10, 10), crs=32633)
+    zstd = tiff_codec.zstd_available()
+    big = "zstd" if zstd else "deflate"
+    rates, files = {}, {}
+    for name, tiled in ((f"{big}_strips", False), (f"{big}_tiled", True)):
+        files[name] = str(Path(tmp) / f"dem_{name}.tif")
+        t0 = time.perf_counter()
+        ntt.write_geotiff(files[name], Z, compress=big, tiled=tiled, **geo)
+        rates[f"{name}_encode_MBps"] = mb / (time.perf_counter() - t0)
+    files["lzw"] = str(Path(tmp) / "dem_lzw.tif")
+    try:
+        t0 = time.perf_counter()
+        Image.fromarray(Z).save(files["lzw"], compression="tiff_lzw")
+        rates["lzw_encode_MBps_pil_libtiff"] = mb / (time.perf_counter() - t0)
+        lzw_writer = f"PIL libtiff, {H}x{W}"
+    except (OSError, ValueError) as e:
+        lzw_writer = f"the port's Python encoder, {CODEC_CROP}^2 ({e})"
+        ntt.write_geotiff(files["lzw"], Z[:CODEC_CROP, :CODEC_CROP],
+                          compress="lzw")
+
+    kw = dict(cellsize=10.0, lookup_pixels=MAIN_LOOKUP, threshold_angle=1,
+              device=dev)
+    mkw = dict(VS_PLAIN_KW, device=dev)
+    torch.cuda.synchronize()
+    reset_counts(cuda_scan)
+    t_path = time.perf_counter()
+    classes = {}
+    for name, fn in files.items():
+        t0 = time.perf_counter()
+        Zr, _ = ntt.imread(fn)
+        rates[f"{name}_imread_MBps"] = Zr.nbytes / 2**20 / (
+            time.perf_counter() - t0)
+        check(np.array_equal(Zr, Z[:Zr.shape[0], :Zr.shape[1]]),
+              f"{name}: the decoded DEM differs from the array")
+        classes[name] = (ntt.geomorphons(Zr, **kw),
+                         ntt.geomorphons(Zr, fast=True, **kw))
+    G_cls = classes[f"{big}_tiled"][0]
+    out_big = str(Path(tmp) / f"classes_{big}.tif")
+    out_lzw = str(Path(tmp) / "classes_lzw.tif")
+    ntt.imwrite(out_big, G_cls, {**geo, "nodata": None}, compress=big)
+    G_crop = G_cls[:CODEC_CROP, :CODEC_CROP]
+    t0 = time.perf_counter()
+    ntt.imwrite(out_lzw, G_crop, {**geo, "nodata": None}, compress="lzw")
+    rates["lzw_python_encode_MBps_crop"] = G_crop.numel() / 2**20 / (
+        time.perf_counter() - t0)
+    back_big, back_lzw = ntt.imread(out_big)[0], ntt.imread(out_lzw)[0]
+    src = ntt.GeoTiffSource(files[f"{big}_tiled"])
+    t0 = time.perf_counter()
+    M = ntt.mosaic_terrain_products(src, **mkw)
+    mosaic_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_path
+    counts = read_counts(cuda_scan)
+
+    ts = mkw["tile_size"]
+    n_tiles = (-(-H // ts)) * (-(-W // ts))
+    want = {k: 0 for k in counts}
+    want.update({"K5/counts": len(files), "K1": len(files) + n_tiles,
+                 "K2": n_tiles})
+    check(counts == want, f"codec path launched {counts}, expected {want}")
+    for name, (Ge, Gf) in classes.items():
+        if Ge.shape == G.shape:
+            ok = torch.equal(Ge, G) and torch.equal(Gf, G_fast)
+        else:  # the crop written by the Python encoder
+            crop = np.ascontiguousarray(Z[:Ge.shape[0], :Ge.shape[1]])
+            ok = (torch.equal(Ge, ntt.geomorphons(crop, **kw)) and
+                  torch.equal(Gf, ntt.geomorphons(crop, fast=True, **kw)))
+        check(ok, f"{name}: classes differ from the uncompressed DEM's")
+    check(np.array_equal(back_big, G_cls.cpu().numpy())
+          and np.array_equal(back_lzw, G_crop.cpu().numpy()),
+          f"the classes read back from {big} / LZW differ")
+    ref = ntt.mosaic_terrain_products(Z, **mkw)
+    for p, a, b in zip(SIX, M, ref):
+        check(a.dtype == b.dtype and np.array_equal(
+            a, b, equal_nan=a.dtype.kind == "f"),
+            f"mosaic from the {big} GeoTiffSource: {p} differs from the "
+            "in-memory array's")
+
+    # the Python decoders against the native ones on the 2048^2 crop of
+    # the classes (PIL writes PackBits for 8-bit rasters only)
+    a = G_crop.cpu().numpy()
+    for codec in ("lzw", "packbits"):
+        fn = str(Path(tmp) / f"crop_{codec}.tif")
+        Image.fromarray(a).save(fn, compression={"lzw": "tiff_lzw"}.get(
+            codec, codec))
+        got = {}
+        for how in ("native", "python"):
+            t0 = time.perf_counter()
+            if how == "native":
+                got[how] = ntt.imread(fn)[0]
+            else:
+                with _switched(tiff_codec, "_native_call",
+                               lambda *args: None):
+                    got[how] = ntt.imread(fn)[0]
+            rates[f"{codec}_{how}_decode_MBps_crop"] = a.nbytes / 2**20 / (
+                time.perf_counter() - t0)
+            check(np.array_equal(got[how], a),
+                  f"{codec} {how} decode of the crop differs")
+    emit(phase="codec_path", card=card, shape=[H, W],
+         zstd="present" if zstd else "absent: deflate in its place",
+         codec=big, lzw_writer=lzw_writer, wall_s=wall, mosaic_s=mosaic_s,
+         launches_by_kernel=counts, rates_MBps=rates, crop=CODEC_CROP)
+    return counts
 
 
 # ----------------------------------------------------------------------
@@ -3206,6 +3522,8 @@ def main():
         walls[name] = time.perf_counter() - t
         return out
 
+    phase("host_build", host_build)
+
     max_err = phase("kernel_vs_plain", kernel_vs_plain, cuda_scan, dev)
     for kid, err in phase("routes_vs_plain", routes_vs_plain, cuda_scan,
                           dev).items():
@@ -3223,6 +3541,8 @@ def main():
             "main_path", main_path, ntt, cuda_scan, dev, tmp, Z, dem)
         counts = phase("openness_path", openness_path, ntt, cuda_scan, dev,
                        tmp, Z, dem)
+        codec_counts = phase("codec_path", codec_path, ntt, cuda_scan, dev,
+                             tmp, Z, G, G_fast, card)
     share = maskless_share(cuda_scan, Zd)
     sharded_counts, mesh, block_errs = phase(
         "sharded_path", sharded_path, ntt, cuda_scan, dev, Zd, G, G_fast)
@@ -3266,6 +3586,8 @@ def main():
     kernels = kernel_table(cuda_scan, res, launches, max_err, Zd,
                            sharded_blocks(Zd, mesh))
     for k in kernels:
+        if codec_counts.get(k["id"]):
+            k["codec_path_launches"] = codec_counts[k["id"]]
         if k["id"] in mosaic_tiles:
             tiles = dict(mosaic_tiles[k["id"]])
             k["mosaic"] = dict(launches={

@@ -15,8 +15,12 @@ products (``ops/surface``: slope, aspect, hillshade, every curvature
 family, TPI, ...; ``viz/shading``: Swiss and colour-table shading,
 Brassel's atmospheric perspective; ``ops/stats``: Getis-Ord Gi/Gi*,
 Moran's I and the accuracy metrics; their sharded forms in ``dist``),
-the sharded SMRF (``dist.sharded_smrf``) and the out-of-core mosaic
-stream (``tiled_apply``, ``mosaic_terrain_products``)::
+the sharded SMRF (``dist.sharded_smrf``), the out-of-core mosaic
+stream (``tiled_apply``, ``mosaic_terrain_products``), the host ingest
+(the TIFF codecs of ``io/tiff_codec``, the native LAS decoder and
+binning of ``io/las_native`` and ``ops/binning_native``, built with g++
+at first use, which stream ``create_dem_from_las`` and ``smrf_las``) and
+the host geodesy and photogrammetry helpers (``geo``, ``photo``)::
 
     import neilpy_tpu_torch as ntt
     Z, meta = ntt.imread("dem.tif")
@@ -107,6 +111,19 @@ from .ops.stats import (gi_formula, gistar_formula, rasterGi, morans_i,
 from .viz.shading import (swiss_shading, colortable_shade, swiss_lut,
                           brassel_atmospheric_perspective, corner_lut,
                           lut_shade)
+
+# ----- geodesy / photogrammetry (host numpy) -------------------------
+from .geo.proj import (coord_transform, great_circle_distance,
+                       geodesic_inverse, utm_forward, utm_inverse)
+from .geo.geoid import (geoid_height, ellipsoidal_to_orthometric,
+                        orthometric_to_ellipsoidal)
+from .photo.gnss import (read_llh, read_pos, stringify_time,
+                         fix_gopro_bad_time_resolution,
+                         fix_gopro_bad_time_resolution2, posprocessor,
+                         track2azimuth, ypr2opk)
+from .photo.exif import (exif_dict_to_dd, dd_to_exif_tuple,
+                         read_geotags_into_df, ppk_images)
+from . import geo, photo
 
 # ----- multi-device (single-process mesh) / out-of-core --------------
 from . import dist

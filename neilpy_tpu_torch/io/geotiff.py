@@ -10,21 +10,20 @@ reads back in the other with the same array and georeferencing
 (``tests/test_torch_core_io.py``).
 
 Supported on read: baseline TIFF, little/big endian, strip or tile
-organisation, uncompressed / Deflate / LZMA, horizontal and
+organisation, uncompressed / PackBits / LZW / Deflate / new-style
+JPEG (PIL as the entropy decoder, JPEGTables spliced per TechNote 2) /
+ZSTD (COG extension 50000, via libzstd) / LZMA, horizontal and
 floating-point predictors (2 and 3), grayscale or multi-band
 (contiguous or planar), uint8/16/32, int8/16/32, float32/64, IFD
 pyramid chains, plus the GeoTIFF ModelPixelScale/ModelTiepoint/
-ModelTransformation tags and GDAL's NODATA ascii tag.  Windowed reads
-decode only the strips/tiles a pixel rectangle touches.
+ModelTransformation tags and GDAL's NODATA ascii tag.  The codecs are
+``io/tiff_codec.py``.  Windowed reads decode only the strips/tiles a
+pixel rectangle touches.
 
 Written files: little-endian baseline TIFF, strip-organised by default
-or ``tiled=True``, uncompressed or Deflate, optional overview pyramids,
-GeoTIFF georeferencing, optional palette and GDAL_NODATA.
-
-The LZW, PackBits, JPEG and ZSTD codecs live in the JAX package's
-``io/tiff_codec.py`` and its native build, which this package has not
-taken over yet: those files raise ``NotImplementedError``
-(ROADMAP.md, Queue 1, host-only modules).
+or ``tiled=True``, uncompressed or LZW/Deflate/ZSTD via ``compress=``,
+optional overview pyramids, GeoTIFF georeferencing, optional palette
+and GDAL_NODATA.  The bytes equal the JAX package's writer's.
 """
 
 from __future__ import annotations
@@ -39,10 +38,6 @@ from ..core.affine import Affine
 
 __all__ = ["imread", "imwrite", "read_geotiff", "write_geotiff",
            "GeoTiffSource"]
-
-_CODEC_TODO = ("TIFF {} is not ported to neilpy_tpu_torch yet "
-               "(ROADMAP.md, Queue 1, host-only modules: io/tiff_codec.py); "
-               "use an uncompressed or deflate file")
 
 # TIFF tag ids
 _TAG_WIDTH = 256
@@ -62,6 +57,7 @@ _TAG_TILELENGTH = 323
 _TAG_TILEOFFSETS = 324
 _TAG_TILEBYTECOUNTS = 325
 _TAG_SAMPLEFORMAT = 339
+_TAG_JPEGTABLES = 347
 _TAG_MODELPIXELSCALE = 33550
 _TAG_MODELTIEPOINT = 33922
 _TAG_MODELTRANSFORMATION = 34264
@@ -135,18 +131,24 @@ def _dtype_from(bits, sample_format, en):
     return np.dtype(f"{'<' if en == '<' else '>'}{kind}{bits // 8}")
 
 
-_CODEC_NAMES = {5: "LZW", 32773: "PackBits", 7: "JPEG", 50000: "ZSTD"}
-
-
 def _decompress(raw, compression, expected, predictor, width, dtype,
-                samples):
+                samples, jpeg_tables=None):
     if compression == 1:
         out = raw
+    elif compression == 5:  # LZW (native kernel or python fallback)
+        from .tiff_codec import lzw_decode
+        out = lzw_decode(raw, expected)
     elif compression in (8, 32946):  # Deflate / zlib
         out = zlib.decompress(raw)
-    elif compression in _CODEC_NAMES:
-        raise NotImplementedError(
-            _CODEC_TODO.format(_CODEC_NAMES[compression]))
+    elif compression == 32773:  # PackBits (vectorised / native)
+        from .tiff_codec import packbits_decode
+        out = packbits_decode(raw, expected)
+    elif compression == 7:  # new-style JPEG (PIL as entropy decoder)
+        from .tiff_codec import jpeg_decode
+        out = jpeg_decode(bytes(raw), jpeg_tables)
+    elif compression == 50000:  # ZSTD (GDAL/COG extension, libzstd)
+        from .tiff_codec import zstd_decode
+        out = zstd_decode(raw, expected)
     elif compression == 34925:  # LZMA2 (libtiff writes xz-container frames)
         import lzma
         out = lzma.decompress(bytes(raw))
@@ -239,6 +241,9 @@ class GeoTiffSource:
         sfmt = int(g(_TAG_SAMPLEFORMAT, (1,))[0])
         self._planar = int(g(_TAG_PLANARCONFIG, (1,))[0])
         self._predictor = int(g(_TAG_PREDICTOR, (1,))[0])
+        jpt = tags.get(_TAG_JPEGTABLES)
+        self._jpeg_tables = (bytes(_values(jpt, en))
+                             if jpt is not None else None)
         self._dtype_raw = _dtype_from(bits, sfmt, en)
         self._planes = spp if self._planar == 2 else 1
         self._chans = 1 if self._planar == 2 else spp
@@ -422,7 +427,8 @@ class GeoTiffSource:
         raw = self._data[self._offsets[idx]:
                          self._offsets[idx] + self._counts[idx]]
         buf = _decompress(raw, self._comp, expected, self._predictor,
-                          ncols, self._dtype_raw, self._chans)
+                          ncols, self._dtype_raw, self._chans,
+                          self._jpeg_tables)
         blk = np.frombuffer(buf, dtype=self._dtype_raw).reshape(
             nrows, ncols, self._chans)
         self._cache[key] = blk
@@ -626,10 +632,10 @@ def write_geotiff(fn, im, transform=None, crs=None, nodata=None,
     ``im`` may be (H, W) or (H, W, bands) or (bands, H, W); uint8/16/32,
     int16/32, float32/64, as a numpy array or a torch tensor on any
     device.  ``colormap`` is a {value: (r, g, b)} dict producing a
-    paletted single-band file.  ``compress`` is 'none' or 'deflate'
-    (per-block; the reference delegates compressed writes to rasterio,
-    neilpy.py:165-190); 'lzw' and 'zstd' raise ``NotImplementedError``
-    until the codec module is ported.
+    paletted single-band file.  ``compress`` is one of
+    'none' | 'deflate' | 'lzw' | 'zstd' (per-block, own encoders — the
+    reference delegates compressed writes to rasterio,
+    neilpy.py:165-190).
 
     ``tiled=True`` writes ``tile_size``² tiles instead of strips, and
     ``overviews=(2, 4, ...)`` appends reduced-resolution IFDs to the
@@ -681,11 +687,12 @@ def write_geotiff(fn, im, transform=None, crs=None, nodata=None,
     if colormap is not None and dt != np.dtype("<u1"):
         raise ValueError("colormap requires uint8 data")
 
-    if compress in ("lzw", "zstd"):
-        raise NotImplementedError(_CODEC_TODO.format(compress.upper()))
     enc = None
-    if compress == "deflate":
-        enc = lambda b: zlib.compress(b, 6)
+    if compress != "none":
+        from .tiff_codec import lzw_encode, zstd_encode
+        enc = {"lzw": lzw_encode,
+               "zstd": zstd_encode}.get(compress,
+                                        lambda b: zlib.compress(b, 6))
 
     # cascade levels GDAL-style (each from the previous when the
     # factors nest): level 8 of a memmapped mosaic reduces the level-4
@@ -944,8 +951,8 @@ def imwrite(fn, im, metadata=None, colormap=None, overwrite_metadata=True,
     (imageio there, PIL here): georeferencing is NOT embedded — a
     warning says so when metadata was supplied, mirroring the
     reference's print at neilpy.py:189.  ``compress`` passes through to
-    :func:`write_geotiff` ('none' | 'deflate').  ``im`` may be a torch
-    tensor on any device; it is copied to the host."""
+    :func:`write_geotiff` ('none' | 'deflate' | 'lzw' | 'zstd').  ``im``
+    may be a torch tensor on any device; it is copied to the host."""
     im = _host_array(im)
     if not str(fn).lower().endswith((".tif", ".tiff")):
         if metadata is not None:

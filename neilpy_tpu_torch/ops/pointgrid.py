@@ -23,10 +23,12 @@ binning, then a pandas ``groupby(flat_index).min()/.max()`` scatter.
 * The int32 flat-index limit of the JAX kernel is kept: ``scatter_reduce``
   refuses grids beyond 2**31 - 1 cells, ``create_dem`` routes them
   through the (row, col) scatter and refuses ``method='sort'`` there.
-* ``bin_points(native=None)`` takes the numpy path; the native binning
-  library is not ported yet, so ``native=True`` raises as the JAX
-  package does when it is not built.  ``create_dem_from_las`` reads
-  through ``io/las.read_las`` (the JAX package's non-native branch).
+* ``bin_points(native=None)`` takes the native binning library
+  (``ops/binning_native.py``, built at first use) and falls back to
+  numpy where the JAX package does; the origin shift of the device
+  binning path takes it too.  ``create_dem_from_las`` streams the file
+  through the native LAS decoder chunk by chunk into the device grid,
+  in the memory of one chunk.
 """
 
 from __future__ import annotations
@@ -84,15 +86,26 @@ def bin_points(x, y, cellsize=1, edges=None, native=None):
 
     Returns (flat_index int64 array, in_range bool array, (ny, nx), t).
 
-    ``native=None`` and ``native=False`` take numpy; ``native=True``
-    asks for the native binning library, which this package does not
-    build yet, and raises.
+    ``native=None`` (auto) dispatches to the multithreaded C++ kernel
+    when it is built (identical output up to f64 associativity on
+    bit-exact cell-edge hits: its flat index is int32) and falls back to
+    numpy beyond the int32 grid limit; ``native=True`` raises where the
+    kernel is missing or refuses; ``native=False`` forces numpy.
     """
-    if native:
-        raise RuntimeError("native binning requested but "
-                           "libbinning.so is not built")
     x = np.asarray(x, dtype=np.float64)
     y = np.asarray(y, dtype=np.float64)
+    if native is None or native:
+        from .binning_native import native_available, bin_points_native
+        if native_available():
+            try:
+                return bin_points_native(x, y, cellsize, edges)
+            except ValueError:
+                if native:  # explicit request: surface the limit
+                    raise
+                # auto mode: >int32 grids fall back to numpy below
+        elif native:
+            raise RuntimeError("native binning requested but "
+                               "libbinning.so is not built")
     ny, nx, t, cellsize, in_range = _grid_frame(x, y, cellsize, edges)
     if in_range is None:
         in_range = np.ones(x.shape, dtype=bool)
@@ -109,7 +122,13 @@ def bin_points(x, y, cellsize=1, edges=None, native=None):
 
 def _origin_shift(x, y, t):
     """Host f64 shift to the grid origin, then float32: the offsets span
-    only the grid extent, so float32 keeps sub-millimetre resolution."""
+    only the grid extent, so float32 keeps sub-millimetre resolution.
+    The native kernel (multithreaded) rounds the same f64 differences
+    once, so both give the same bits."""
+    from .binning_native import origin_shift_native
+    shifted = origin_shift_native(x, y, t.c, t.f)
+    if shifted is not None:
+        return shifted
     return (x - t.c).astype(np.float32), (t.f - y).astype(np.float32)
 
 
@@ -294,34 +313,92 @@ def grid_points_device(x, y, z, cellsize=1, bin_type="max", edges=None,
     return _sentinel_to_nan(grid, bin_type), t
 
 
+def _upload(a, dev):
+    """A host chunk on ``dev``: to a CUDA device from pinned memory with
+    ``non_blocking=True``, so the host goes on to decode the next chunk
+    while the card scatters this one."""
+    t = torch.from_numpy(a)
+    if dev.type == "cuda":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t.to(dev)
+
+
 def create_dem_from_las(filename, cellsize=1, bin_type="max",
                         chunk_points=4_000_000, stride=1, bbox=None,
                         classes=None, edges=None, inpaint=False,
                         device=None):
-    """Grid a LAS file straight to a DEM.
+    """Grid a LAS file straight to a DEM in fixed host memory.
 
-    Reads the file with ``io/las.read_las`` (the JAX package's branch
-    for when its native decoder is not built; the native streamed
-    decoder is not ported yet, so ``chunk_points`` is accepted and
-    unused), filters by ``bbox``, ``stride`` and ``classes`` (ASPRS
-    codes to keep), and grids with ``create_dem(..., device_bin=True)``.
-    Returns (I, t).
+    Streams the file through the native decoder (``io/las_native.py``)
+    in ``chunk_points`` batches, shifts each batch to the grid origin
+    (``origin_shift_native``) and scatters it into the device grid (the
+    order-independent min/max accumulation of
+    ``create_dem(..., device_bin=True, chunks=N)``, so the grid equals
+    the one-shot grid bit for bit), so a LAS file of any size grids in
+    the memory of one chunk.  The grid frame comes from the LAS header's
+    min/max block, which matches ``create_dem``'s point-derived frame
+    whenever the header is truthful; ``bbox`` = (xmin, xmax, ymin, ymax)
+    is intersected with that extent; pass ``edges`` to pin the frame.
+
+    ``classes``: optional iterable of ASPRS classification codes to
+    keep (e.g. ``(2,)`` for ground-only).  ``bbox`` and ``stride``
+    filter/decimate inside the native decoder.  Without the decoder
+    (its library could not be built) the file is read whole through
+    ``io/las.read_las`` and gridded with ``create_dem(...,
+    device_bin=True)`` on the filtered points' own frame, as in the JAX
+    package.  Returns (I, t).
     """
-    del chunk_points
-    from ..io.las import read_las
-    _, df = read_las(filename)
+    from ..io.las_native import (native_available, read_header,
+                                 read_las_chunks)
+    if not native_available():
+        from ..io.las import read_las
+        _, df = read_las(filename)
+        if bbox is not None:
+            keep = ((df.x >= bbox[0]) & (df.x <= bbox[1])
+                    & (df.y >= bbox[2]) & (df.y <= bbox[3]))
+            df = df[keep]
+        if stride > 1:
+            df = df.iloc[::stride]
+        if classes is not None:
+            df = df[np.isin(np.asarray(df["class"]),
+                            np.asarray(list(classes)))]
+        return create_dem(df.x, df.y, df.z, cellsize=cellsize,
+                          bin_type=bin_type, edges=edges, inpaint=inpaint,
+                          device_bin=True, device=device)
+    ident = _identity(bin_type)
+    hdr = read_header(filename)
+    # the LAS header's block is (MaxX, MinX, MaxY, MinY, MaxZ, MinZ)
+    xmax, xmin, ymax, ymin = hdr["minmax"][:4]
     if bbox is not None:
-        keep = ((df.x >= bbox[0]) & (df.x <= bbox[1])
-                & (df.y >= bbox[2]) & (df.y <= bbox[3]))
-        df = df[keep]
-    if stride > 1:
-        df = df.iloc[::stride]
-    if classes is not None:
-        df = df[np.isin(np.asarray(df["class"]),
-                        np.asarray(list(classes)))]
-    return create_dem(df.x, df.y, df.z, cellsize=cellsize,
-                      bin_type=bin_type, edges=edges, inpaint=inpaint,
-                      device_bin=True, device=device)
+        xmin, xmax = max(xmin, bbox[0]), min(xmax, bbox[1])
+        ymin, ymax = max(ymin, bbox[2]), min(ymax, bbox[3])
+        if xmin > xmax or ymin > ymax:
+            raise ValueError(f"bbox {tuple(bbox)} does not overlap the "
+                             "file's extent")
+    ny, nx, t, _, _ = _grid_frame(np.array([xmin, xmax]),
+                                  np.array([ymin, ymax]), cellsize, edges)
+    dev = resolve_device(device)
+    grid = torch.full((ny, nx), ident, dtype=torch.float32, device=dev)
+    inv = _inv_cellsize(t, dev)
+    class_arr = (None if classes is None
+                 else np.asarray(list(classes), dtype=np.uint8))
+    for chunk in read_las_chunks(filename, chunk_points=chunk_points,
+                                 stride=stride, bbox=bbox):
+        x, y, z = chunk["x"], chunk["y"], chunk["z"]
+        if class_arr is not None:
+            keep = np.isin(chunk["class"], class_arr)
+            x, y, z = x[keep], y[keep], z[keep]
+        if x.size == 0:
+            continue
+        xr, yr = _origin_shift(x, y, t)
+        _grid_scatter_accum(grid, _upload(xr, dev), _upload(yr, dev),
+                            _upload(z.astype(np.float32), dev), inv, ny,
+                            nx, bin_type)
+    I = _sentinel_to_nan(grid, bin_type)
+    if inpaint:
+        from .inpaint import inpaint_nans_by_springs
+        I = inpaint_nans_by_springs(I)
+    return I, t
 
 
 def create_dem(x, y, z, cellsize=1, bin_type="max", inpaint=False,

@@ -275,24 +275,29 @@ def smrf_las(filename, out_filename, cellsize=1, windows=5,
              elevation_scaler=1.25, low_filter_slope=5,
              low_outlier_fill=False, chunk_points=4_000_000,
              ground_class=2, object_class=1, device=None):
-    """End-to-end SMRF over a whole LAS file: grid, filter, classify
-    every point, and write the ASPRS classification codes back.
+    """Streamed end-to-end SMRF over a whole LAS file: grid, filter,
+    classify every point, and write the ASPRS classification codes
+    back — in the fixed memory of one chunk, whatever the file size.
 
-    The output file is a byte-exact copy of the input — every attribute,
-    VLR and waveform block preserved — with ONLY the per-record
-    classification field rewritten (``ground_class`` / ``object_class``;
-    PDRF 0-5 keep their synthetic/keypoint/withheld flag bits, PDRF 6-10
-    their separate flag byte).  The file is read through
-    ``io/las.read_las`` (the native streamed decoder is not ported yet);
-    the point stage runs ``chunk_points`` at a time.
+    Pass 1 streams the file through the native decoder into the device
+    scatter (``create_dem_from_las``), the raster stage runs once on the
+    device, and pass 2 re-streams the points through the spline-lift
+    classifier ``chunk_points`` at a time.  The output file is a
+    byte-exact copy of the input — every attribute, VLR and waveform
+    block preserved — with ONLY the per-record classification field
+    rewritten (``ground_class`` / ``object_class``; PDRF 0-5 keep their
+    synthetic/keypoint/withheld flag bits, PDRF 6-10 their separate flag
+    byte).  Without the native decoder both passes read the file through
+    ``io/las.read_las``, as in the JAX package.
 
     Returns ``(Zpro, t, object_cells, stats)`` — the provisional DTM,
     its affine transform, the object-cell grid, and a dict with
-    ``n_points`` / ``n_ground`` / ``n_object``.  Classification
-    decisions match ``smrf(x, y, z, ...)`` run in-memory on the same
-    frame (reference pipeline: neilpy.py:1685-1808).
+    ``n_points`` / ``n_ground`` / ``n_object``.  The grid frame comes
+    from the LAS header's min/max block (see ``create_dem_from_las``);
+    classification decisions match ``smrf(x, y, z, ...)`` run in-memory
+    on the same frame (reference pipeline: neilpy.py:1685-1808).
     """
-    from ..io.las import read_las
+    from ..io.las_native import native_available
 
     if os.path.abspath(str(filename)) == os.path.abspath(str(out_filename)):
         raise ValueError("out_filename must differ from the input file")
@@ -302,10 +307,12 @@ def smrf_las(filename, out_filename, cellsize=1, windows=5,
             raise ValueError(f"{name} must be a uint8 ASPRS code")
     windows = _windows(windows)
     dev = resolve_device(device)
+    chunk_points = max(int(chunk_points), 1)
 
-    # ---- pass 1: min-surface gridding + raster stage ----
+    # ---- pass 1: streamed min-surface gridding + raster stage ----
     Zmin_raw, t = create_dem_from_las(filename, cellsize=cellsize,
-                                      bin_type="min", device=dev)
+                                      bin_type="min",
+                                      chunk_points=chunk_points, device=dev)
     Zpro, object_cells, _, coeffs_Z, coeffs_S = _smrf_raster(
         Zmin_raw, tuple(int(w) for w in windows),
         _thresholds(windows, slope_threshold, cellsize, torch.float32, dev),
@@ -314,7 +321,16 @@ def smrf_las(filename, out_filename, cellsize=1, windows=5,
         float(cellsize), bool(low_outlier_fill), False)
 
     # ---- header facts for the classification byte-patch ----
-    hdr, df = read_las(filename)
+    if native_available():
+        from ..io.las_native import read_header, read_las_chunks
+        hdr = read_header(filename)
+        chunks = read_las_chunks(filename, chunk_points=chunk_points)
+    else:
+        from ..io.las import read_las
+        hdr, df = read_las(filename)
+        chunks = iter([{"x": np.asarray(df.x, dtype=np.float64),
+                        "y": np.asarray(df.y, dtype=np.float64),
+                        "z": np.asarray(df.z, dtype=np.float64)}])
     pdrf = int(hdr["point_data_format_id"])
     if pdrf <= 5:
         # PDRF 0-5 keep only 5 bits of classification (LAS 1.1-1.3
@@ -333,35 +349,40 @@ def smrf_las(filename, out_filename, cellsize=1, windows=5,
     # (LAS 1.1-1.3 spec table 8); PDRF 6-10 give it a full byte
     cls_off = 15 if pdrf <= 5 else 16
 
-    # ---- pass 2: copy, then classify the points -> patch ----
-    x64 = np.asarray(df.x, dtype=np.float64)
-    y64 = np.asarray(df.y, dtype=np.float64)
-    z64 = np.asarray(df.z, dtype=np.float64)
-    c, r = (~t) * (x64, y64)
-    is_obj, _ = _smrf_points_streamed(
-        coeffs_Z, coeffs_S, r, c, z64,
-        torch.tensor(elevation_threshold, dtype=torch.float32, device=dev),
-        torch.tensor(elevation_scaler, dtype=torch.float32, device=dev),
-        max(int(chunk_points), 1), need_elev=False)
-    is_obj = is_obj.cpu().numpy()
-    m = is_obj.size
-    if m != n:
-        raise RuntimeError(
-            f"classified {m} of {n} header-declared points — "
-            "truncated or inconsistent LAS file")
+    # ---- pass 2: copy, then re-stream points -> classify -> patch ----
     shutil.copyfile(filename, out_filename)
     mm = np.memmap(out_filename, dtype=np.uint8, mode="r+")
     # strided writable view over each record's classification byte
     cls_view = mm[off0 + cls_off: off0 + (n - 1) * reclen + cls_off + 1:
                   reclen]
-    cls = np.where(is_obj, np.uint8(object_class),
-                   np.uint8(ground_class)).astype(np.uint8)
-    if pdrf <= 5:
-        cls_view[:] = (cls_view & 0xE0) | (cls & 0x1F)
-    else:
-        cls_view[:] = cls
+    eth = torch.tensor(elevation_threshold, dtype=torch.float32, device=dev)
+    esc = torch.tensor(elevation_scaler, dtype=torch.float32, device=dev)
+    n_object = 0
+    pos = 0
+    for chunk in chunks:
+        x64 = np.asarray(chunk["x"], dtype=np.float64)
+        y64 = np.asarray(chunk["y"], dtype=np.float64)
+        z64 = np.asarray(chunk["z"], dtype=np.float64)
+        m = x64.size
+        c, r = (~t) * (x64, y64)
+        is_obj, _ = _smrf_points_streamed(coeffs_Z, coeffs_S, r, c, z64,
+                                          eth, esc, chunk_points,
+                                          need_elev=False)
+        is_obj = is_obj.cpu().numpy()
+        cls = np.where(is_obj, np.uint8(object_class),
+                       np.uint8(ground_class)).astype(np.uint8)
+        if pdrf <= 5:
+            cls_view[pos:pos + m] = ((cls_view[pos:pos + m] & 0xE0)
+                                     | (cls & 0x1F))
+        else:
+            cls_view[pos:pos + m] = cls
+        n_object += int(is_obj.sum())
+        pos += m
     mm.flush()
-    n_object = int(is_obj.sum())
+    if pos != n:
+        raise RuntimeError(
+            f"classified {pos} of {n} header-declared points — "
+            "truncated or inconsistent LAS file")
     stats = {"n_points": n, "n_object": n_object,
              "n_ground": n - n_object}
     return Zpro, t, object_cells, stats

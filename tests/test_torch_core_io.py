@@ -121,18 +121,6 @@ def test_geotiff_write_tensor_and_classes(tmp_path):
     np.testing.assert_array_equal(neilpy_tpu.imread(fn)[0], G.numpy())
 
 
-def test_unported_codecs_raise(tmp_path):
-    Z = _dem(3)
-    fn = str(tmp_path / "lzw.tif")
-    neilpy_tpu.write_geotiff(fn, Z, compress="lzw")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        neilpy_tpu_torch.imread(fn)
-    for compress in ("lzw", "zstd"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            neilpy_tpu_torch.write_geotiff(str(tmp_path / "x.tif"), Z,
-                                           compress=compress)
-
-
 def test_worldfile_matches(tmp_path):
     a = neilpy_tpu.from_origin(612000.0, 4700000.0, 2.0, 2.0)
     neilpy_tpu_torch.write_worldfile(a, str(tmp_path / "t.pgw"))

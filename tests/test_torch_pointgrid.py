@@ -294,8 +294,13 @@ def test_bin_points_and_limits():
             np.testing.assert_array_equal(a, b)
         else:
             assert tuple(a) == tuple(b)
-    with pytest.raises(RuntimeError, match="libbinning"):
-        tpg.bin_points(x, y, native=True)
+    native = tpg.bin_points(x, y, cellsize=1.5, native=True)
+    for a, b in zip(native, tpg.bin_points(x, y, cellsize=1.5)):
+        if isinstance(a, np.ndarray):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+        else:
+            assert tuple(a) == tuple(b)
     with pytest.raises(ValueError, match="int32"):
         tpg.scatter_reduce(np.zeros(4, np.int64), np.ones(4, np.float32),
                            np.ones(4, bool), 50000 * 50000, device=CPU)
@@ -325,9 +330,11 @@ def test_numpy_input_goes_to_cuda():
 
 
 def test_create_dem_from_las_matches(tmp_path, monkeypatch):
-    """The port reads through ``read_las``: the JAX package's branch for
-    when its native decoder is not built, which the JAX side takes here
-    too (with the decoder the frame comes from the header instead)."""
+    """The port streams through its native decoder in the header's
+    frame; the JAX side is held to its ``read_las`` branch (its native
+    one needs its own build), which takes the filtered points' frame.
+    ``write_las`` writes a truthful header and the bbox edges snap to
+    the same cells as the points inside them, so the grids agree."""
     import neilpy_tpu.io.las_native as las_native
     monkeypatch.setattr(las_native, "native_available", lambda: False)
     rng = np.random.default_rng(12)

@@ -745,6 +745,20 @@ def test_out_of_core_names_match_the_jax_package(name):
         assert ours["device"].default is None
 
 
+def test_dist_names_match_the_jax_package():
+    """``ntt.dist`` has every public name of ``nt.dist`` (the tiling
+    exports too) and one more, ``Mesh``: the port's mesh is a
+    single-process grid of torch devices, a class of its own where the
+    JAX package uses ``jax.sharding.Mesh``."""
+    ours = {n for n in dir(ntt.dist) if not n.startswith("_")}
+    theirs = {n for n in dir(nt.dist) if not n.startswith("_")}
+    assert ours - theirs == {"Mesh"}
+    assert theirs - ours == set()
+    for name in ("tiled_apply", "apply_parallel", "TileCheckpoint"):
+        assert getattr(ntt.dist, name) is getattr(ntt, name)
+        assert name in ntt.dist.__all__
+
+
 # ----------------------------------------------------------------------
 # on the card only
 # ----------------------------------------------------------------------
