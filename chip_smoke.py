@@ -40,6 +40,12 @@ with ``imread``, at lookup 50:
 - ``main_path``: ``geomorphons`` (exact, enhance, fast) -> ``imwrite``
   of the classes (K5's static plan of K1 x 3 for the exact ladder, the
   JAX package's default route there, and K1 x 1 for fast);
+- ``profiling_path``: the port's ``profiling`` module around the main
+  path's kernels on that DEM: ``Throughput`` around ``geomorphons``
+  (K5/counts; its host seconds at least the call's CUDA-event time, less
+  5%, its result main_path's classes), ``trace`` around an exact and a
+  fast call (the Chrome trace names K5/counts' and K1's ``__global__``
+  kernels) and ``compile_report`` (``compile_s`` 0.0 after the build);
 - ``openness_path``: ``openness_pair`` (exact, then fast) ->
   ``skyview_factor`` -> ``ternary_pattern_from_openness(lowest=True)``
   -> ``openness(neighbors=[1, 5])`` ->
@@ -1069,6 +1075,78 @@ def main_path(ntt, cuda_scan, dev, tmp, Z, dem):
     emit(phase="main_path", shape=list(MAIN_SHAPE), lookup=MAIN_LOOKUP,
          launches_by_kernel=counts, wall_s=wall, class_histogram=hist)
     return Zd, counts, G, G_fast
+
+
+# the __global__ names of K5/counts (csrc/openness_counts_plan.cu:49) and
+# K1 (csrc/openness_counts.cu:55), as CUPTI names their kernel events
+TRACED_KERNELS = {"K5/counts": "openness_counts_plan_kernel",
+                  "K1": "openness_counts_kernel"}
+THROUGHPUT_SLACK = 0.95        # host clock >= device time, less 5%
+
+
+def profiling_path(ntt, cuda_scan, Zd, G, card):
+    """Phase 4b: the port's observability surface around the main path's
+    kernels on the 8192^2 DEM already on the card (cellsize 10, lookup
+    50): ``Throughput`` around ``geomorphons`` (K5/counts), whose host
+    seconds must cover the CUDA-event time of the same call, less 5%,
+    and whose result equals main_path's classes; ``trace`` around one
+    exact and one ``fast=True`` call (K1), whose Chrome trace must name
+    both kernels; ``compile_report`` of ``geomorphons``, whose
+    ``compile_s`` is 0.0 (the build phase built everything) and whose
+    ``lower_s`` is finite and positive."""
+    kw = dict(cellsize=10, lookup_pixels=MAIN_LOOKUP, threshold_angle=1)
+    torch.cuda.synchronize()
+    reset_counts(cuda_scan)
+    t_phase = time.perf_counter()
+
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    with ntt.Throughput("geomorphons", items=Zd.numel()) as tp:
+        start.record()
+        tp.result = ntt.geomorphons(Zd, **kw)
+        stop.record()
+    event_ms = start.elapsed_time(stop)
+    check(tp.seconds * 1e3 >= THROUGHPUT_SLACK * event_ms,
+          f"Throughput {tp.seconds * 1e3:.3f} ms < the CUDA-event "
+          f"{event_ms:.3f} ms of the same call, less 5%")
+    check(torch.equal(tp.result, G), "Throughput's result != main_path's")
+
+    with tempfile.TemporaryDirectory() as log_dir:
+        with ntt.trace(log_dir) as traced:
+            ntt.geomorphons(Zd, **kw)
+            ntt.geomorphons(Zd, fast=True, **kw)
+        files = list(Path(traced).glob("*.json"))
+        check(len(files) == 1, f"trace wrote {files}")
+        trace_bytes = files[0].stat().st_size
+        events = json.loads(files[0].read_text())["traceEvents"]
+    kernel_names = [e["name"] for e in events if e.get("cat") == "kernel"]
+    traced_events = {kid: sum(name in k for k in kernel_names)
+                     for kid, name in TRACED_KERNELS.items()}
+    for kid, n in traced_events.items():
+        check(n > 0, f"the trace names no {TRACED_KERNELS[kid]} ({kid}) "
+                     f"kernel among {sorted(set(kernel_names))[:20]}")
+
+    report = ntt.compile_report(ntt.geomorphons, Zd, cellsize=10,
+                                lookup_pixels=MAIN_LOOKUP)
+    check(report["compile_s"] == 0.0,
+          f"compile_s {report['compile_s']} after the build phase")
+    check(np.isfinite(report["lower_s"]) and report["lower_s"] > 0,
+          f"lower_s {report['lower_s']}")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_phase
+    counts = read_counts(cuda_scan)
+
+    want = {k: 0 for k in counts}
+    want.update({"K5/counts": 3, "K1": 1})
+    check(counts == want, f"profiling path launched {counts}, expected "
+                          "K5/counts x 3 and K1 x 1")
+    emit(phase="profiling_path", card=card, shape=list(Zd.shape),
+         lookup=MAIN_LOOKUP, throughput_s=tp.seconds,
+         throughput_mpix_s=tp.rate / 1e6, event_ms=event_ms,
+         trace_bytes=trace_bytes, trace_kernel_events=len(kernel_names),
+         traced_events_by_kernel=traced_events, compile_report=report,
+         launches_by_kernel=counts, wall_s=wall)
+    return counts
 
 
 def openness_path(ntt, cuda_scan, dev, tmp, Z, dem):
@@ -3539,6 +3617,8 @@ def main():
         Z, dem = write_dem(ntt, tmp)
         Zd, main_counts, G, G_fast = phase(
             "main_path", main_path, ntt, cuda_scan, dev, tmp, Z, dem)
+        profiling_counts = phase("profiling_path", profiling_path, ntt,
+                                 cuda_scan, Zd, G, card)
         counts = phase("openness_path", openness_path, ntt, cuda_scan, dev,
                        tmp, Z, dem)
         codec_counts = phase("codec_path", codec_path, ntt, cuda_scan, dev,
@@ -3588,6 +3668,8 @@ def main():
     for k in kernels:
         if codec_counts.get(k["id"]):
             k["codec_path_launches"] = codec_counts[k["id"]]
+        if profiling_counts.get(k["id"]):
+            k["profiling_path_launches"] = profiling_counts[k["id"]]
         if k["id"] in mosaic_tiles:
             tiles = dict(mosaic_tiles[k["id"]])
             k["mosaic"] = dict(launches={

@@ -20,7 +20,11 @@ stream (``tiled_apply``, ``mosaic_terrain_products``), the host ingest
 (the TIFF codecs of ``io/tiff_codec``, the native LAS decoder and
 binning of ``io/las_native`` and ``ops/binning_native``, built with g++
 at first use, which stream ``create_dem_from_las`` and ``smrf_las``) and
-the host geodesy and photogrammetry helpers (``geo``, ``photo``)::
+the host geodesy and photogrammetry helpers (``geo``, ``photo``), and
+the last host modules: ``utils`` (``voxelize``, ``write_voxel_stl``,
+``set_print_options``), ``filters`` (the per-window callbacks for
+``scipy.ndimage.generic_filter``) and ``profiling`` (``Throughput``,
+``trace``, ``compile_report`` on CUDA and ``torch.profiler``)::
 
     import neilpy_tpu_torch as ntt
     Z, meta = ntt.imread("dem.tif")
@@ -43,13 +47,22 @@ the host geodesy and photogrammetry helpers (``geo``, ``photo``)::
     G, O, MI = ntt.mosaic_terrain_products(ntt.GeoTiffSource("big.tif"),
                                            tile_size=4096,
                                            checkpoint="mosaic.json")
+    with ntt.Throughput("geomorphons", items=Z.size) as tp:
+        tp.result = ntt.geomorphons(Z, cellsize=10, lookup_pixels=50)
 
 Numpy input goes to the CUDA device by default, where the scan ladder
 runs in hand-written kernels (``csrc/*.cu``, built with nvcc at first
 use); ``device='cpu'`` runs their plain PyTorch versions instead.  The
 SMRF slice and the DEM products run plain torch ops on the device
-(``precision='exact'`` in float64 there).  Names and arguments follow ``neilpy_tpu``.  The
-package imports neither ``jax`` nor ``neilpy_tpu``.
+(``precision='exact'`` in float64 there).  Names and arguments follow
+``neilpy_tpu``; the functions add ``device=`` (and ``count_openness``
+``engine=``).  One module is not carried over: ``aot``, the JAX
+package's persistent cache of compiled executables, whose job (not
+paying for a compile again in a fresh process) is done here by the
+build cache of ``_build.py`` and ``_host_build.py``, libraries keyed by
+a hash of their sources.  A result on the card is a CUDA tensor:
+``np.asarray`` of it needs ``.cpu()`` first, where a JAX array converts
+anywhere.  The package imports neither ``jax`` nor ``neilpy_tpu``.
 """
 
 __version__ = "0.1.0"
@@ -124,6 +137,20 @@ from .photo.gnss import (read_llh, read_pos, stringify_time,
 from .photo.exif import (exif_dict_to_dd, dd_to_exif_tuple,
                          read_geotags_into_df, ppk_images)
 from . import geo, photo
+
+# ----- misc -----------------------------------------------------------
+from .utils import voxelize, write_voxel_stl, set_print_options
+from . import filters, utils
+
+# The reference exposes its install directory as a module global
+# (neilpy.py:83); as in neilpy_tpu it is the package directory.
+import os as _os
+neilpy_dir = _os.path.dirname(_os.path.abspath(__file__))
+del _os
+
+# ----- observability ---------------------------------------------------
+from .profiling import Throughput, trace, compile_report
+from . import profiling
 
 # ----- multi-device (single-process mesh) / out-of-core --------------
 from . import dist

@@ -24,6 +24,7 @@ import os
 import re
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 _PKG_DIR = Path(__file__).resolve().parent
@@ -31,6 +32,9 @@ SOURCE_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "neilpy_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
+# seconds this process spent compiling in ``build`` (read by
+# ``profiling.compile_report``)
+BUILD_SECONDS = 0.0
 
 def _sources():
     srcs = sorted(SOURCE_DIR.glob("*.cu"))
@@ -77,6 +81,8 @@ def build():
     """Compile the sources unless the library for them exists; return
     its path.  nvcc's output (ptxas's per-kernel registers and spills)
     is kept beside it, in the same name with ``.log``."""
+    global BUILD_SECONDS
+    t0 = time.perf_counter()
     lib = library_path()
     if lib.is_file():
         return lib
@@ -98,6 +104,7 @@ def build():
             obj.unlink(missing_ok=True)
     lib.with_suffix(".log").write_text(log)
     os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
+    BUILD_SECONDS += time.perf_counter() - t0
     return lib
 
 

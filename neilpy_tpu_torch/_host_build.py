@@ -38,6 +38,7 @@ import os
 import platform
 import shutil
 import subprocess
+import time
 import warnings
 from pathlib import Path
 
@@ -49,6 +50,9 @@ CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-pthread", "-shared",
              "-ffp-contract=off")
 
 _LOADED = {}  # name -> ctypes.CDLL, or None after a reported failure
+# seconds this process spent compiling in ``build`` (read by
+# ``profiling.compile_report``)
+BUILD_SECONDS = 0.0
 
 
 def cpu_signature():
@@ -95,8 +99,10 @@ def build(name):
     """Compile ``native/<name>.cpp`` unless its library exists; return
     the library's path.  Raises RuntimeError with g++'s output when the
     compiler is missing or fails."""
+    global BUILD_SECONDS
     if name not in NAMES:
         raise ValueError(f"unknown host library {name!r}; one of {NAMES}")
+    t0 = time.perf_counter()
     cxx = _cxx()
     flags = _flags(cxx)
     lib = library_path(name, flags)
@@ -118,6 +124,7 @@ def build(name):
                     f"g++ failed on native/{name}.cpp (exit "
                     f"{proc.returncode}):\n{proc.stderr[-2000:]}")
             os.replace(tmp, lib)
+            BUILD_SECONDS += time.perf_counter() - t0
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
     return lib

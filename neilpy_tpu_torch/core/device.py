@@ -1,9 +1,10 @@
-"""Where the SMRF slice's arrays live: one rule for every entry point.
+"""Where the port's arrays live: one rule for every entry point.
 
 A tensor stays on its own device unless ``device`` is given.  Any other
 input (numpy array, pandas column, nested lists) goes to ``device``,
 which defaults to CUDA; without a CUDA device that raises rather than
-running on the CPU unasked — pass ``device='cpu'`` for the host.
+running on the CPU unasked — pass ``device='cpu'`` for the host.  The
+default is the one constant ``_DEFAULT_DEVICE``, read at each call.
 
 Unlike ``ops/visibility.py:as_raster``, which casts to float32, the
 float helper keeps float64: the exact SMRF path runs in float64 on the
@@ -15,11 +16,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+_DEFAULT_DEVICE = "cuda"
+
 
 def resolve_device(device=None):
-    """``device`` as a ``torch.device`` (CUDA when None); a CUDA device
-    on a machine without one raises."""
-    device = torch.device("cuda" if device is None else device)
+    """``device`` as a ``torch.device`` (``_DEFAULT_DEVICE`` when None); a
+    CUDA device on a machine without one raises."""
+    device = torch.device(_DEFAULT_DEVICE if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run the plain "

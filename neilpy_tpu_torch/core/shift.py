@@ -19,8 +19,12 @@ Direction convention (clockwise from upper-left = direction 0)::
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
+
+from .device import to_device
 
 # (row, col) offset of the *source* pixel for each direction.
 # direction d "grabs" the pixel n steps away toward compass direction d.
@@ -69,6 +73,17 @@ def ashift(Z, direction, n=1):
         return Z
     mask = shift_valid_mask(Z.shape, direction, n, device=Z.device)
     return torch.where(mask, rolled(Z, direction, n), Z)
+
+
+def ashift_fill(Z, direction, n=1, fill=math.nan, device=None):
+    """Directional shift with a constant ``fill`` (in ``Z``'s dtype) for
+    out-of-range positions.  A tensor stays on its own device unless
+    ``device`` is given; other input goes to ``device``
+    (``core/device.py``)."""
+    Z = to_device(Z, device)
+    mask = shift_valid_mask(Z.shape, direction, n, device=Z.device)
+    return torch.where(mask, rolled(Z, direction, n),
+                       torch.tensor(fill, dtype=Z.dtype, device=Z.device))
 
 
 def gradient2d(Z, spacing=1.0):

@@ -36,6 +36,7 @@ import torch
 
 from ..core.codes import (geomorphon_cmap, jasiewicz_stepinski_table,
                           lowest_equivalent_table)
+from ..core.device import to_device
 from ..io.png import write_paletted_png
 from ..io.worldfile import write_worldfile
 from .cuda_scan import (_HALF_PI, _threshold_tangent, directional_extrema,
@@ -50,28 +51,13 @@ __all__ = ["openness", "openness_pair", "skyview_factor", "svf_from_extrema",
 
 
 def as_raster(Z, device=None):
-    """``Z`` as a float32 tensor on ``device``.
-
-    A tensor stays on its own device unless ``device`` is given.  Any
-    other input (numpy array, nested lists) goes to ``device``, which
-    defaults to CUDA; without a CUDA device that raises rather than
-    running on the CPU unasked — pass ``device='cpu'`` for the plain
-    PyTorch version on the host."""
-    if not isinstance(Z, torch.Tensor):
-        arr = np.ascontiguousarray(Z, dtype=np.float32)
-        if not arr.flags.writeable:  # e.g. a read-only memmap
-            arr = arr.copy()
-        Z = torch.from_numpy(arr)
-        if device is None:
-            device = torch.device("cuda")
-    if device is not None:
-        device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "CUDA is not available; pass device='cpu' to run the plain "
-                "PyTorch version on the host")
-        Z = Z.to(device)
-    return Z.to(torch.float32).contiguous()
+    """``Z`` as a contiguous float32 tensor, placed by the port's device
+    rule (``core/device.py``): a tensor stays on its own device unless
+    ``device`` is given, any other input goes to ``device`` (CUDA by
+    default; without a CUDA device that raises rather than running on the
+    CPU unasked — pass ``device='cpu'`` for the plain PyTorch version on
+    the host)."""
+    return to_device(Z, device, torch.float32).contiguous()
 
 
 # ----------------------------------------------------------------------

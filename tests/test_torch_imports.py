@@ -48,7 +48,10 @@ def test_the_guard_sees_every_module():
                    "neilpy_tpu_torch/geo/ntv2.py",
                    "neilpy_tpu_torch/geo/geoid.py",
                    "neilpy_tpu_torch/photo/gnss.py",
-                   "neilpy_tpu_torch/photo/exif.py"):
+                   "neilpy_tpu_torch/photo/exif.py",
+                   "neilpy_tpu_torch/utils.py",
+                   "neilpy_tpu_torch/filters.py",
+                   "neilpy_tpu_torch/profiling.py"):
         assert expect in names
     assert forbidden("jax.numpy") and forbidden("neilpy_tpu.ops.inpaint")
     assert forbidden("sklearn.metrics") and forbidden("matplotlib.pyplot")
