@@ -156,19 +156,22 @@ for the classes and K2 for the openness pair, dynamic route):
   profiler pass; ``sharded_progressive_filter`` bit for bit at 2001^2;
   ``sharded_springs_fill`` on inpaint_scale's 4096^2 raster within 1e-3
   of the float64 fill;
-- ``mosaic_path``: a seeded 32768^2 DEM in an ``np.memmap`` (a smaller
-  side, printed first, where the disk is short) through
-  ``mosaic_terrain_products`` (trio, lookup 25, tile 4096, exact wire,
-  streamed) into three output memmaps: a child process SIGKILLed at half
-  the tiles, the resume here (K1 one launch per remaining tile, all on the
-  TMA load of the 4156^2 tile), an uninterrupted run under the profiler
-  with the same CRC, three interior windows recomputed untiled on the
-  card (``mosaic_child`` is the child's entry, ``--mosaic-child``);
+- ``mosaic_path``: ``tools/demo_mosaic_torch.py`` (config 5's run at
+  full extent) as subprocesses at 32768^2 (a smaller side where the disk
+  is short, the cut in the line): the JAX demo's DEM in an ``np.memmap``,
+  the trio at lookup 50, cellsize 10, windows (1, 2, 4), 64 tiles of
+  4196^2, exact wire, streamed, into one memmap per product; SIGKILLed at
+  half the tiles and resumed (K1 once per remaining tile, all on TMA, by
+  the tool's own counts), the BigTIFF equal to the class memmap,
+  ``--verify`` on three interior windows; then an uninterrupted run here
+  under the profiler with the same CRC;
 - ``mosaic_vs_plain``: all six products at 8192^2, lookup 31 (4158^2
   tiles, K1's and K2's cp.async load): streamed == resident == a one-card
   2 x 2 mesh bit for bit, compact == exact where exact and its bf16
   rounding elsewhere, card == CPU plain on a 1024^2 crop; K1 and K2 timed
-  on one mosaic tile each against their plain versions.
+  on one mosaic tile each against their plain versions;
+- ``mosaic_scale``: the same run of the tool at 16384^2 (16 tiles) on
+  the compact wire, with the uint16 upload and Moran stored as float16.
 
 Tolerances, kernel against plain version: counts, classes, extrema and
 ternary codes exact; openness within 5e-5 degrees, with +inf (a pixel
@@ -276,6 +279,7 @@ def kernel_fns(cuda_scan):
 def reset_counts(cuda_scan):
     for fn in kernel_fns(cuda_scan).values():
         fn.launches = 0
+    cuda_scan.tile_loads.clear()
 
 
 def read_counts(cuda_scan):
@@ -3068,13 +3072,17 @@ def surface_timing(ntt, dev, Zd, card):
 # ----------------------------------------------------------------------
 SHARDED_ZPRO_TOL = 1e-3        # tests/test_torch_dist_smrf.py
 SHARDED_FILL_TOL = 1e-3        # of the f64 fill, as inpaint_scale's f32 one
-MOSAIC_SIDES = (32768, 24576, 16384)   # the first that fits on the disk
-MOSAIC_PX_BYTES = 4 + 1 + 1 + 4        # DEM + classes + objects + Moran
-MOSAIC_KW = dict(cellsize=1, lookup_pixels=25, threshold_angle=1,
-                 windows=5, slope_threshold=.15, gi_radius=3,
-                 tile_size=4096, wire="exact", device_input=False)
-MOSAIC_OUT_DTYPES = (np.uint8, bool, np.float32)
-MOSAIC_WINDOW = 2048           # three interior windows recomputed untiled
+# tools/demo_mosaic_torch.py's runs: the JAX demo's settings (the trio at
+# lookup 50, cellsize 10, windows (1, 2, 4): overlap 50, 4196^2 tiles of a
+# 4096 tile, the TMA load), streamed
+DEMO_TOOL = HERE / "tools" / "demo_mosaic_torch.py"
+MOSAIC_TILE = 4096
+MOSAIC_SIDES = (32768, 24576, 16384)   # mosaic_path: the first that fits
+MOSAIC_ARGS = ("--tile", str(MOSAIC_TILE), "--wire", "exact")
+SCALE_SIDE = 16384             # mosaic_scale: 16 tiles
+SCALE_ARGS = ("--tile", str(MOSAIC_TILE), "--wire", "compact",
+              "--upload-dtype", "uint16", "--moran-f16")
+TOOL_TIMEOUT = 600             # seconds for each of the tool's two runs
 MORAN_TOL = 1e-5               # tests/test_torch_tiling.py
 SIX = ("geomorphons", "objects", "moran", "gi", "openness_pos",
        "openness_neg")
@@ -3179,47 +3187,90 @@ def sharded_smrf_path(ntt, cuda_scan, dev, cloud, single_prof, fills):
              max_abs_diff_vs_single_f32=float((sfill - f32).abs().max())))
 
 
-def write_mosaic_dem(path, side, dev, band=2048, seed=0):
-    """bench_input's recipe at ``side``^2 straight into an ``np.memmap``:
-    seeded normals drawn on the card in row bands, summed along columns
-    (carried across bands) and along rows, each band copied out as it is
-    made, so host memory holds one band."""
-    Z = np.memmap(path, dtype=np.float32, mode="w+", shape=(side, side))
-    g = torch.Generator(device=dev)
-    g.manual_seed(seed)
-    carry = torch.zeros(side, device=dev)
-    for r0 in range(0, side, band):
-        e = torch.randn((min(band, side - r0), side), generator=g,
-                        device=dev)
-        down = torch.cumsum(e, dim=0) + carry
-        carry = down[-1].clone()
-        Z[r0:r0 + e.shape[0]] = (down + torch.cumsum(e, dim=1)).cpu().numpy()
-    Z.flush()
-    del Z
+def demo_tool():
+    """``tools/demo_mosaic_torch.py`` as a module: its settings and the
+    helpers that open its files."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("demo_mosaic_torch",
+                                                  DEMO_TOOL)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
-def mosaic_arrays(spec, mode):
-    """The DEM (read-only) and the three output memmaps of ``spec``."""
-    side = spec["side"]
-    Z = np.memmap(spec["dem"], dtype=np.float32, mode="r",
-                  shape=(side, side))
-    outs = tuple(np.memmap(p, dtype=dt, mode=mode, shape=(side, side))
-                 for p, dt in zip(spec["outs"], MOSAIC_OUT_DTYPES))
-    return Z, outs
+def run_tool(cmd, timeout):
+    """Run ``cmd`` in its own session and return (rc, output tail); at the
+    timeout the whole session is killed (the tool's own children too) and
+    the run fails."""
+    import signal
+    with tempfile.TemporaryFile("w+") as log:
+        proc = subprocess.Popen(cmd, cwd=HERE, stdout=log,
+                                stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        try:
+            proc.wait(timeout)
+        except subprocess.TimeoutExpired:
+            raise RuntimeError(f"{cmd} still ran after {timeout} s")
+        finally:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+        log.seek(0)
+        return proc.returncode, log.read()[-3000:]
 
 
-def mosaic_child(arg):
-    """``--mosaic-child <spec>``: mosaic_path's run to be killed, the
-    spec's mosaic into its memmaps with its checkpoint."""
-    import neilpy_tpu_torch as ntt
-    spec = json.loads(arg)
-    dev = torch.device(spec["device"])
-    if dev.type == "cuda":
-        torch.cuda.set_device(dev)
-    Z, outs = mosaic_arrays(spec, "r+")
-    ntt.mosaic_terrain_products(Z, checkpoint=spec["checkpoint"], out=outs,
-                                device=dev, **spec["kw"])
-    return 0
+def kill_resume_verify(ntt, tool, dev, d, sizes, args):
+    """``tools/demo_mosaic_torch.py`` on this card in subprocesses, in
+    directory ``d``, at the first side of ``sizes`` that fits on its disk:
+    ``--kill-at 0.5`` (a child SIGKILLed once the checkpoint lists half
+    the tiles, then a child that resumes), then ``--verify`` (three
+    interior 1024^2 windows recomputed untiled on the card).  Checks, from
+    the tool's record: killed with some but not all tiles stored; the
+    resuming child launched K1 once per remaining tile and no other
+    kernel, each launch on the TMA load of a 4196^2 tile (the tool reads
+    ``cuda_scan``'s counts in its process); the class plane's BigTIFF
+    (8-byte offsets) equal to its memmap; ``--verify`` exit 0.  Returns
+    the record, the verified windows and the two runs' seconds."""
+    base = [sys.executable, str(DEMO_TOOL), "--size",
+            ",".join(map(str, sizes)), "--dir", str(d), "--device",
+            str(dev), *args]
+    walls = {}
+    t0 = time.perf_counter()
+    rc, tail = run_tool([*base, "--kill-at", "0.5"], TOOL_TIMEOUT)
+    walls["kill_and_resume_s"] = time.perf_counter() - t0
+    check(rc == 0, f"demo_mosaic_torch --kill-at 0.5 exited {rc}: {tail}")
+    rec = json.loads((d / "record.json").read_text())
+    n, n_tiles, tile = rec["size"], rec["tiles"], rec["tile_px"]
+    killed, resumed = rec["killed_at_tiles"], rec["this_run"]
+    check(n in sizes and n_tiles == (-(-n // MOSAIC_TILE)) ** 2
+          and tile == MOSAIC_TILE + 2 * tool.LOOKUP,
+          f"the tool ran {n}^2 in {n_tiles} tiles of {tile}")
+    check(0 < killed < n_tiles,
+          f"killed with {killed} of {n_tiles} tiles stored")
+    check(resumed["tiles"] == n_tiles - killed
+          and resumed["launches"]["K1"] == n_tiles - killed
+          and sum(resumed["launches"].values()) == n_tiles - killed,
+          f"the resumed run launched {resumed['launches']} over "
+          f"{resumed['tiles']} tiles: one K1 per remaining tile")
+    check(resumed["tile_loads"] == {f"{tile}x{tile} tma": n_tiles - killed},
+          f"the resumed run's K1 tiles took {resumed['tile_loads']}: "
+          f"expected TMA on {tile}^2")
+    G = np.memmap(d / "geomorphons.out", dtype=np.uint8, mode="r",
+                  shape=(n, n))
+    tif = d / "geomorphons.tif"
+    with open(tif, "rb") as f:
+        head = f.read(4)
+    check(head == b"II\x2b\x00", f"the class plane's TIFF header is {head}")
+    check(np.array_equal(ntt.GeoTiffSource(str(tif))[:, :], G),
+          "the BigTIFF differs from the class memmap")
+    del G
+    t0 = time.perf_counter()
+    rc, tail = run_tool([*base, "--verify"], TOOL_TIMEOUT)
+    walls["verify_s"] = time.perf_counter() - t0
+    check(rc == 0, f"demo_mosaic_torch --verify exited {rc}: {tail}")
+    verified = json.loads((d / "verify.json").read_text())
+    check(verified["ok"], f"verify: {verified}")
+    return rec, verified, walls
 
 
 def crc_of(arrays, band=2048):
@@ -3232,170 +3283,59 @@ def crc_of(arrays, band=2048):
     return crc
 
 
-@contextlib.contextmanager
-def recorded_loads(cuda_scan, seen):
-    """Within the block, every tile-path launch records its array's shape
-    and load path (``cuda_scan._tile_load``: 1 TMA, 0 cp.async) in
-    ``seen``."""
-    real = cuda_scan._tile_load
-
-    def rec(Z):
-        load = real(Z)
-        seen.append((tuple(Z.shape), load))
-        return load
-
-    cuda_scan._tile_load = rec
-    try:
-        yield
-    finally:
-        cuda_scan._tile_load = real
-
-
 def mosaic_path(ntt, cuda_scan, dev, tmp, card):
-    """Phase 17: the out-of-core mosaic disk to disk.  A seeded
-    32768^2 float32 DEM (``write_mosaic_dem``, 4.3 GB; 24576^2 or 16384^2
-    where the disk is short, the cut printed first) in an ``np.memmap``,
-    the default trio (geomorphons, objects, moran) at lookup 25, windows
-    5, gi_radius 3, tile 4096, exact wire, streamed (``device_input=
-    False``) into three output memmaps.  A child process runs it with a
-    checkpoint and is SIGKILLed once the checkpoint lists half the tiles;
-    the run resumes here (K1 counted: one launch per remaining tile, on
-    the TMA load); the outputs' CRC is kept, an uninterrupted run without
-    checkpoint rewrites them under one ``torch.profiler`` pass (K1 one
-    launch per tile, idle share) and must give the same CRC; then three
-    random interior 2048^2 windows recomputed from the DEM with the
-    untiled functions on the card: classes and objects equal, Moran
-    within 1e-5.  Returns each kernel's launches on the counted run."""
-    import shutil
-    import signal
-    free = shutil.disk_usage(tmp).free
-    fits = [s for s in MOSAIC_SIDES if 1.05 * s * s * MOSAIC_PX_BYTES < free]
-    check(bool(fits), f"{free / 1e9:.1f} GB free at {tmp}: no mosaic fits")
-    side = fits[0]
-    if side != MOSAIC_SIDES[0]:
-        emit(phase="mosaic_cut", side=side, wanted=MOSAIC_SIDES[0],
-             free_gb=free / 1e9, needed_gb=1.05 * MOSAIC_SIDES[0] ** 2
-             * MOSAIC_PX_BYTES / 1e9)
-    ts = MOSAIC_KW["tile_size"]
-    n_tiles = (-(-side // ts)) ** 2
-    ov = ntt.pipelines.mosaic.required_overlap(
-        MOSAIC_KW["lookup_pixels"], np.arange(1, MOSAIC_KW["windows"] + 1),
-        MOSAIC_KW["gi_radius"])
-    spec = dict(side=side, device=str(dev), kw=MOSAIC_KW,
-                dem=str(Path(tmp) / "dem.f32"),
-                outs=[str(Path(tmp) / f"{p}.out") for p in
-                      ("classes", "objects", "moran")],
-                checkpoint=str(Path(tmp) / "mosaic.json"))
-    t0 = time.perf_counter()
-    write_mosaic_dem(spec["dem"], side, dev)
-    dem_s = time.perf_counter() - t0
-    Z, outs = mosaic_arrays(spec, "w+")
-    del outs
-
-    log = Path(tmp) / "child.log"
-    t0 = time.perf_counter()
-    with open(log, "w") as f:
-        child = subprocess.Popen(
-            [sys.executable, str(HERE / "chip_smoke.py"), "--mosaic-child",
-             json.dumps(spec)], cwd=HERE, stdout=f, stderr=subprocess.STDOUT)
-    try:
-        while child.poll() is None and time.perf_counter() - t0 < 300:
-            try:
-                with open(spec["checkpoint"]) as f:
-                    if len(json.load(f)) >= n_tiles // 2:
-                        break
-            except (FileNotFoundError, json.JSONDecodeError):
-                pass
-            time.sleep(0.02)
-        child.send_signal(signal.SIGKILL)
-    finally:
-        if child.poll() is None:
-            child.kill()
-        child.wait()
-    to_kill_s = time.perf_counter() - t0
-    tail = log.read_text()[-2000:]
-    check(child.returncode == -signal.SIGKILL,
-          f"the mosaic child ended by itself (rc {child.returncode}): {tail}")
-    ckpt = ntt.TileCheckpoint(spec["checkpoint"])
-    done = len(ckpt.done)
-    check(0 < done < n_tiles, f"killed with {done} of {n_tiles} tiles done")
-
-    Z, outs = mosaic_arrays(spec, "r+")
-    reset_counts(cuda_scan)
-    loads, resumed_ps = [], {}
-    t0 = time.perf_counter()
-    with recorded_loads(cuda_scan, loads):
-        ntt.mosaic_terrain_products(Z, checkpoint=spec["checkpoint"],
-                                    out=outs, phase_stats=resumed_ps,
-                                    device=dev, **MOSAIC_KW)
-    torch.cuda.synchronize()
-    resume_s = time.perf_counter() - t0
-    resumed = read_counts(cuda_scan)
-    check(resumed["K1"] == n_tiles - done
-          and sum(resumed.values()) == resumed["K1"],
-          f"the resumed run launched {resumed}: one K1 per remaining tile")
-    check(len(ntt.TileCheckpoint(spec["checkpoint"]).done) == n_tiles,
-          "the resumed run left tiles unmarked")
-    check({s for s, _ in loads} == {(ts + 2 * ov,) * 2}
-          and {lo for _, lo in loads} == {1},
-          f"mosaic_path's K1 tiles took {set(loads)}: expected TMA on "
-          f"{ts + 2 * ov}^2")
-    for o in outs:
-        o.flush()
+    """Phase 17: the out-of-core mosaic disk to disk, as
+    ``tools/demo_mosaic_torch.py`` runs config 5, on the exact wire with a
+    float32 Moran plane: the JAX demo's seeded DEM at 32768^2 (4.3 GB;
+    24576^2 or 16384^2 where the disk is short, the cut in the line), the
+    trio at lookup 50, cellsize 10, windows (1, 2, 4), 64 tiles of 4196^2,
+    streamed into one memmap per product; killed at half the tiles,
+    resumed and verified (``kill_resume_verify``: classes and objects
+    exact, Moran within 1e-5).  Then the outputs' CRC is kept, an
+    uninterrupted run without checkpoint rewrites them here under one
+    ``torch.profiler`` pass (K1 one launch per tile, every one on TMA;
+    idle share) and must give the same CRC.  Returns each kernel's
+    launches on that run."""
+    tool = demo_tool()
+    d = Path(tmp) / "mosaic"
+    rec, verified, walls = kill_resume_verify(ntt, tool, dev, d,
+                                              MOSAIC_SIDES, MOSAIC_ARGS)
+    n, n_tiles, tile = rec["size"], rec["tiles"], rec["tile_px"]
+    products = tuple(rec["products"])
+    check(rec["dtypes"]["moran"] == "float32",
+          f"mosaic_path stored Moran as {rec['dtypes']['moran']}")
+    outs = tool.open_outputs(str(d), n, tool.out_dtypes(products, False))
     crc_resumed = crc_of(outs)
-
+    Z = tool.ensure_dem(str(d), n)
     reset_counts(cuda_scan)
     full_ps = {}
     _, prof = device_profile(lambda: ntt.mosaic_terrain_products(
-        Z, out=outs, phase_stats=full_ps, device=dev, **MOSAIC_KW))
+        Z, tile_size=MOSAIC_TILE, out=outs, products=products, wire="exact",
+        phase_stats=full_ps, device=dev, **tool.MOSAIC_KW))
     launches = read_counts(cuda_scan)
-    check(launches["K1"] == n_tiles
-          and sum(launches.values()) == n_tiles,
+    check(launches["K1"] == n_tiles and sum(launches.values()) == n_tiles,
           f"the uninterrupted mosaic launched {launches}: one K1 per tile")
+    check(cuda_scan.tile_loads == {(tile, tile, 1): n_tiles},
+          f"the uninterrupted mosaic's K1 tiles took "
+          f"{dict(cuda_scan.tile_loads)}: expected TMA on {tile}^2")
     for o in outs:
         o.flush()
     check(crc_of(outs) == crc_resumed,
           "the killed-and-resumed mosaic differs from the uninterrupted one")
-
-    with open(spec["checkpoint"] + ".moments") as f:
-        mom = json.load(f)
-    rng = np.random.default_rng(11)
-    windows = np.arange(1, MOSAIC_KW["windows"] + 1)
-    w = MOSAIC_WINDOW
-    checked = []
-    for _ in range(3):
-        r0, c0 = (int(v) for v in rng.integers(ov, side - ov - w, 2))
-        blk = torch.from_numpy(np.array(Z[r0 - ov:r0 + w + ov,
-                                          c0 - ov:c0 + w + ov])).to(dev)
-        core = np.s_[ov:ov + w, ov:ov + w]
-        G = ntt.geomorphons(blk, 1, MOSAIC_KW["lookup_pixels"], 1)[core]
-        O = ntt.progressive_filter(blk, windows, 1, .15)[core]
-        M = ntt.local_morans_i(blk, MOSAIC_KW["gi_radius"], mean=mom["mean"],
-                               s2=mom["s2"])[core]
-        sl = np.s_[r0:r0 + w, c0:c0 + w]
-        check(np.array_equal(G.cpu().numpy(), outs[0][sl]),
-              f"mosaic classes differ from geomorphons at {r0, c0}")
-        check(np.array_equal(O.cpu().numpy(), outs[1][sl]),
-              f"mosaic objects differ from progressive_filter at {r0, c0}")
-        merr = float(np.nanmax(np.abs(M.cpu().numpy() - outs[2][sl])))
-        check(np.array_equal(np.isnan(M.cpu().numpy()), np.isnan(outs[2][sl]))
-              and merr <= MORAN_TOL,
-              f"mosaic Moran at {r0, c0}: max |diff| {merr}")
-        checked.append({"at": [r0, c0], "moran_max_abs_diff": merr})
-    px = side * side
-    emit(phase="mosaic_path", card=card, side=side, tiles=n_tiles,
-         tile=ts + 2 * ov, overlap=ov, dem_write_s=dem_s,
-         killed_at_tiles=done, child_to_kill_s=to_kill_s,
-         resumed=dict(seconds=resume_s, tiles=n_tiles - done,
-                      mpix_s=(n_tiles - done) * ts * ts / resume_s / 1e6,
-                      phase_stats=resumed_ps, launches_by_kernel=resumed),
-         uninterrupted=dict(mpix_s=px / prof["wall_ms"] * 1e3 / 1e6,
+    emit(phase="mosaic_path", card=card, side=n, size_cut=rec["size_cut"],
+         tiles=n_tiles, tile=tile, overlap=rec["overlap"],
+         args=list(MOSAIC_ARGS), killed_at_tiles=rec["killed_at_tiles"],
+         **walls, wall_s=rec["wall_s"], mpix_s=rec["mpix_s"],
+         recovered_s=rec["recovered_s"], moments_pass=rec["moments_pass"],
+         resumed=rec["this_run"],
+         uninterrupted=dict(mpix_s=n * n / prof["wall_ms"] * 1e3 / 1e6,
                             phase_stats=full_ps, launches_by_kernel=launches,
                             profile=prof,
                             moments_and_setup_s=prof["wall_ms"] / 1e3
                             - full_ps["total"]),
          k1_tile_load="tma", resume_equals_uninterrupted=True,
-         windows_checked=checked)
+         bigtiff_s=rec["bigtiff_s"], bigtiff_gib=rec["bigtiff_gib"],
+         verify=verified["windows"])
     return {"K1": launches["K1"], "K2": launches["K2"]}
 
 
@@ -3443,8 +3383,9 @@ def mosaic_vs_plain(ntt, cuda_scan, dev, card):
     wire elsewhere, and on a 1024^2 crop (tile 512) the card against the
     CPU's plain versions: classes, objects and Gi bins equal, Moran within
     1e-5, openness within 5e-5 degrees.  Then K1 and K2 timed on one
-    mosaic tile each (mosaic_path's 4156^2 at lookup 25, this phase's
-    4158^2 at lookup 31) against their plain versions, with bounds.
+    mosaic tile each (mosaic_path's and mosaic_scale's 4196^2 at lookup
+    50, cellsize 10; this phase's 4158^2 at lookup 31) against their plain
+    versions, with bounds.
     ``tuple_readback`` runs after the warm-up."""
     from neilpy_tpu_torch.pipelines.mosaic import (_bf16_bits, _bf16_to_f32,
                                                    required_overlap)
@@ -3470,18 +3411,16 @@ def mosaic_vs_plain(ntt, cuda_scan, dev, card):
     run("warm-up", Z[:1024, :1024], tile_size=512)
     readback_cases = tuple_readback(ntt, dev)
     reset_counts(cuda_scan)
-    loads = []
-    with recorded_loads(cuda_scan, loads):
-        A = run("streamed", Z, device_input=False)
+    A = run("streamed", Z, device_input=False)
     counts = read_counts(cuda_scan)
     check(counts["K1"] == n_tiles and counts["K2"] == n_tiles
           and sum(counts.values()) == 2 * n_tiles,
           f"the six-product mosaic launched {counts}: one K1 and one K2 "
           "per tile")
     tile = ts + 2 * kw["lookup_pixels"]
-    check(set(loads) == {((tile, tile), 0)},
-          f"mosaic_vs_plain's tiles took {set(loads)}: expected cp.async "
-          f"on {tile}^2")
+    check(cuda_scan.tile_loads == {(tile, tile, 0): 2 * n_tiles},
+          f"mosaic_vs_plain's tiles took {dict(cuda_scan.tile_loads)}: "
+          f"expected cp.async on {tile}^2")
     for name, extra in (("resident", dict(device_input="auto")),
                         ("mesh_2x2", dict(mesh=ntt.dist.make_mesh(
                             [dev] * 4)))):
@@ -3518,18 +3457,18 @@ def mosaic_vs_plain(ntt, cuda_scan, dev, card):
         check(errs[p] <= tol, f"crop {p}: card vs CPU {errs[p]} above {tol}")
 
     tiles = {}
-    mosaic_tile = MOSAIC_KW["tile_size"] + 2 * required_overlap(
-        MOSAIC_KW["lookup_pixels"], np.arange(1, MOSAIC_KW["windows"] + 1),
-        MOSAIC_KW["gi_radius"])
+    tool = demo_tool()
+    mosaic_tile = MOSAIC_TILE + 2 * required_overlap(
+        tool.LOOKUP, np.array(tool.WINDOWS), tool.GI_RADIUS)
     for kid, lookup, side, mode in (
-            ("K1", MOSAIC_KW["lookup_pixels"], mosaic_tile, None),
+            ("K1", tool.LOOKUP, mosaic_tile, None),
             ("K2", VS_PLAIN_KW["lookup_pixels"], tile, "openness")):
         Zt = torch.from_numpy(np.ascontiguousarray(Z[:side, :side])).to(dev)
         if mode is None:
             fns = {"kernel": cuda_scan.openness_counts_cuda,
                    "plain": cuda_scan.openness_counts_torch}
-            call = lambda f: f(Zt, cellsize=1.0, lookup_pixels=lookup,
-                               threshold_angle=1.0)
+            call = lambda f: f(Zt, cellsize=tool.CELLSIZE,
+                               lookup_pixels=lookup, threshold_angle=1.0)
             nbytes, fold = 6 * side * side, 0
         else:
             fns = {"kernel": cuda_scan.openness_reduced_cuda,
@@ -3562,9 +3501,30 @@ def mosaic_vs_plain(ntt, cuda_scan, dev, card):
     return tiles
 
 
+def mosaic_scale(ntt, dev, tmp, card):
+    """Phase 19: BASELINE config 5 as ``tools/demo_mosaic_torch.py`` runs
+    it at full extent, at 16384^2: the JAX demo's seeded DEM, the trio at
+    lookup 50, cellsize 10, windows (1, 2, 4), 16 tiles of 4196^2, on the
+    compact wire with the uint16 upload and Moran stored as float16,
+    streamed, the class plane as a tiled BigTIFF; killed at half the
+    tiles, resumed and verified (``kill_resume_verify``: classes on >=
+    0.99999 of each window, objects exact, Moran within the bfloat16 and
+    float16 roundings).  Returns K1's launches in the resuming child."""
+    rec, verified, walls = kill_resume_verify(
+        ntt, demo_tool(), dev, Path(tmp) / "scale", (SCALE_SIDE,),
+        SCALE_ARGS)
+    resumed = rec["this_run"]
+    emit(phase="mosaic_scale", card=card, side=SCALE_SIDE,
+         tiles=rec["tiles"], tile=rec["tile_px"], args=list(SCALE_ARGS),
+         killed_at_tiles=rec["killed_at_tiles"], **walls,
+         wall_s=rec["wall_s"], mpix_s=rec["mpix_s"],
+         recovered_s=rec["recovered_s"], moments_pass=rec["moments_pass"],
+         resumed=resumed, bigtiff_s=rec["bigtiff_s"],
+         bigtiff_gib=rec["bigtiff_gib"], verify=verified["windows"])
+    return {"K1": resumed["launches"]["K1"]}
+
+
 def main():
-    if sys.argv[1:2] == ["--mosaic-child"]:
-        return mosaic_child(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing run",
               file=sys.stderr)
@@ -3654,6 +3614,8 @@ def main():
                                 dev, tmp, card)
     mosaic_tiles = phase("mosaic_vs_plain", mosaic_vs_plain, ntt, cuda_scan,
                          dev, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        scale = phase("mosaic_scale", mosaic_scale, ntt, dev, tmp, card)
     emit(phase="walls", seconds=walls, total=sum(walls.values()))
 
     # each kernel's launches on the path that runs it
@@ -3675,6 +3637,8 @@ def main():
             k["mosaic"] = dict(launches={
                 "mosaic_path": mosaic_launches[k["id"]],
                 "mosaic_vs_plain": tiles.pop("vs_plain_launches")}, **tiles)
+            if k["id"] == "K1":
+                k["mosaic"]["launches"]["mosaic_scale"] = scale["K1"]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -79,6 +79,7 @@ Nothing falls back: a kernel that does not build or launch raises.
 
 from __future__ import annotations
 
+import collections
 import functools
 import math
 from typing import NamedTuple
@@ -443,6 +444,12 @@ def _tile_load(Z):
     return int(Z.shape[1] % 4 == 0 and Z.data_ptr() % 16 == 0)
 
 
+# launches that took the tile path, by (rows, columns, load path of
+# _tile_load: 1 TMA, 0 cp.async); counted by _launch after the launch, as
+# each wrapper's ``launches`` is
+tile_loads = collections.Counter()
+
+
 # ----------------------------------------------------------------------
 # plain PyTorch versions
 # ----------------------------------------------------------------------
@@ -724,18 +731,21 @@ def _launch(Z, entry, cellsize, lookup_pixels, fast, how_fast, *args,
     tile arguments unless ``tiles`` is None (:func:`_tile_args` with the
     geometry ``tiles``, ``{}`` for a whole raster), then K5's region plan
     if ``plan``, then ``args``, on Z's device and current stream
-    (:func:`_run_entry`)."""
+    (:func:`_run_entry`); a launch on the tile path is counted in
+    ``tile_loads``."""
     ladder = _ladder(int(lookup_pixels), fast, how_fast)
     Rmax = ladder[-1]
     ladder_t, scales = _device_tables(float(cellsize), ladder, Z.device)
     dense = ladder == tuple(range(1, len(ladder) + 1))
     H, W = Z.shape
+    tile = (() if tiles is None
+            else _tile_args(Z, Rmax, len(ladder), plan, **tiles))
     _run_entry(Z, entry, (
         Z.data_ptr(), H, W, ladder_t.data_ptr(), scales.data_ptr(),
-        len(ladder), Rmax, int(dense), _ALLOW_MASKLESS,
-        *(() if tiles is None
-          else _tile_args(Z, Rmax, len(ladder), plan, **tiles)),
+        len(ladder), Rmax, int(dense), _ALLOW_MASKLESS, *tile,
         *(region_plan(H, W, Rmax) if plan else ()), *args))
+    if any(tile):
+        tile_loads[(H, W, tile[-1])] += 1
 
 
 def _outputs(out, shape, dtype, device, name, n=2):

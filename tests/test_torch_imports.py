@@ -1,7 +1,8 @@
 """The PyTorch port imports neither JAX nor the JAX package, nor sklearn or
 matplotlib, which the card's machine does not promise: every module
-under ``neilpy_tpu_torch/`` (and ``chip_smoke.py``, which runs where JAX
-is not installed) is parsed and each of its imports checked, including
+under ``neilpy_tpu_torch/`` (and ``chip_smoke.py`` and
+``tools/demo_mosaic_torch.py``, which run where JAX is not installed) is
+parsed and each of its imports checked, including
 the ones inside functions."""
 
 import ast
@@ -58,7 +59,9 @@ def test_the_guard_sees_every_module():
     assert not forbidden("neilpy_tpu_torch.ops.inpaint")
 
 
-@pytest.mark.parametrize("path", MODULES + [REPO / "chip_smoke.py"],
+@pytest.mark.parametrize("path", MODULES + [REPO / "chip_smoke.py",
+                                             REPO / "tools" /
+                                             "demo_mosaic_torch.py"],
                          ids=lambda p: p.relative_to(REPO).as_posix())
 def test_module_imports_no_jax(path):
     bad = [(line, m) for line, m in imported_modules(path) if forbidden(m)]

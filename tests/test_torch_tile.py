@@ -19,7 +19,8 @@ the reductions (``csrc/ladder_tile.cuh``), on the CPU: its host mirror
 - the reduced wrappers hand their C entries the tile arguments of
   ``_tile_args`` (K2 the dynamic tiles, K5/reduced the plan's interior)
   in the entry's order, and zeros with the tile path or a direction of
-  the route mask off;
+  the route mask off; ``cuda_scan.tile_loads`` counts each tile-path
+  launch by shape and load path;
 - shard blocks (K4 on its core's grid at (R, R), K3's origin entry on the
   haloed block), the blocks of 1x1, 2x2 and 2x3 meshes over three rasters
   at lookups 1, 12, 24 and 50 on both ladders: every read in the window,
@@ -35,6 +36,7 @@ and ``chip_smoke.py`` holds every kernel, tile path on and off, against
 the plain version.
 """
 
+import collections
 import sys
 from pathlib import Path
 
@@ -534,6 +536,32 @@ def test_reduced_wrappers_pass_the_tile_arguments(monkeypatch, plan, variant,
         assert rest[3:] == {"openness": (*p, None), "svf": (*p, None, None),
                             "ternary": (None, None, *p)}[mode]
     assert fn.launches == 3
+
+
+def test_tile_path_launches_are_counted_by_shape_and_load(monkeypatch):
+    """``cuda_scan.tile_loads`` counts each launch that took the tile path
+    by (rows, columns, load path), after the launch: K1 on a 900-wide
+    raster (TMA) twice and a 771-wide one (cp.async) once; nothing with the
+    tile path off, and nothing for a launch that raised."""
+    monkeypatch.setattr(cs, "_check_cuda", lambda Z, name: None)
+    monkeypatch.setattr(cs, "_run_entry", lambda Z, name, args: None)
+    monkeypatch.setattr(cs, "tile_loads", collections.Counter())
+    monkeypatch.setattr(cs.openness_counts_cuda, "launches", 0)
+    for shape in ((600, 900), (600, 900), (515, 771)):
+        cs.openness_counts_cuda(torch.zeros(shape), lookup_pixels=50)
+    assert cs.tile_loads == {(600, 900, 1): 2, (515, 771, 0): 1}
+    monkeypatch.setattr(cs, "_ALLOW_TILE", False)
+    cs.openness_counts_cuda(torch.zeros((600, 900)), lookup_pixels=50)
+    monkeypatch.setattr(cs, "_ALLOW_TILE", True)
+
+    def fail(Z, name, args):
+        raise RuntimeError("launch failed")
+
+    monkeypatch.setattr(cs, "_run_entry", fail)
+    with pytest.raises(RuntimeError):
+        cs.openness_counts_cuda(torch.zeros((600, 900)), lookup_pixels=50)
+    assert cs.tile_loads == {(600, 900, 1): 2, (515, 771, 0): 1}
+    assert cs.openness_counts_cuda.launches == 4
 
 
 @pytest.fixture
