@@ -50,6 +50,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from .. import profiling
 from ..core.device import resolve_device
 from ..core.shift import pad_edge
 
@@ -229,9 +230,10 @@ class _Transport:
                 entry[1] += 1
                 return torch.empty(shape, dtype=_CARRIER.get(tdt, tdt),
                                    pin_memory=True), pool
-        t0 = time.perf_counter()
-        buf = pool.get()
-        self.waited += time.perf_counter() - t0
+        with profiling.span("tiling.store_wait"):
+            t0 = time.perf_counter()
+            buf = pool.get()
+            self.waited += time.perf_counter() - t0
         return buf, pool
 
     def download(self, results):
@@ -340,7 +342,13 @@ def tiled_apply(fn, Z, tile_size, overlap, out=None, out_dtype=None,
     program and the readback's launch), 'readback_wait' (waiting for a
     readback), 'store_wait' (writer backpressure: a full store queue or
     no free readback buffer), plus 'tiles' and 'total'.  Phases overlap
-    each other and the device, so they need not sum to 'total'."""
+    each other and the device, so they need not sum to 'total'.  While a
+    ``torch.profiler`` profile is open the same intervals are recorded as
+    spans (``profiling.span``): ``tiling.read``, ``tiling.upload``,
+    ``tiling.dispatch``, ``tiling.readback_wait`` and ``tiling.store_wait``
+    (a dispatch's buffer waits nested in its span), ``tiling.loop`` for
+    'total', and per tile the writer's ``tiling.store`` with
+    ``tiling.unpack``, ``tiling.decode`` and ``tiling.write_out``."""
     _ps = phase_stats if phase_stats is not None else {}
     _ps_lock = threading.Lock()
 
@@ -410,47 +418,54 @@ def tiled_apply(fn, Z, tile_size, overlap, out=None, out_dtype=None,
         data is in ``out``.  Runs on the single writer thread, so stores
         keep their order."""
         nonlocal out
-        r0, r1, c0, c1 = bounds
-        if specs is not None:
-            res = _unpack_host(payload[0].array(), specs)
-        else:
-            res = tuple(p.array() if isinstance(p, _Readback) else p
-                        for p in payload)
-        if decode is not None:
-            res = decode(res)
-        res = tuple(a[: r1 - r0, : c1 - c0] for a in res)
-        if out is None:
-            dts = (out_dtype if isinstance(out_dtype, (tuple, list))
-                   else (out_dtype,) * len(res))
-            out = tuple(np.empty((H, W), dtype=dt or a.dtype)
-                        for dt, a in zip(dts, res))
-        for o, a in zip(out, res):
-            o[r0:r1, c0:c1] = a
-        for p in payload:
-            if isinstance(p, _Readback):
-                p.release()
-        if ckpt:
-            ckpt.mark(key)
-        if progress:
-            print(f"tile {key} / ({n_ty},{n_tx})", flush=True)
+        with profiling.span("tiling.store", parent=loop):
+            r0, r1, c0, c1 = bounds
+            with profiling.span("tiling.unpack"):
+                if specs is not None:
+                    res = _unpack_host(payload[0].array(), specs)
+                else:
+                    res = tuple(p.array() if isinstance(p, _Readback)
+                                else p for p in payload)
+            if decode is not None:
+                with profiling.span("tiling.decode"):
+                    res = decode(res)
+            with profiling.span("tiling.write_out"):
+                res = tuple(a[: r1 - r0, : c1 - c0] for a in res)
+                if out is None:
+                    dts = (out_dtype if isinstance(out_dtype, (tuple, list))
+                           else (out_dtype,) * len(res))
+                    out = tuple(np.empty((H, W), dtype=dt or a.dtype)
+                                for dt, a in zip(dts, res))
+                for o, a in zip(out, res):
+                    o[r0:r1, c0:c1] = a
+            for p in payload:
+                if isinstance(p, _Readback):
+                    p.release()
+            if ckpt:
+                ckpt.mark(key)
+            if progress:
+                print(f"tile {key} / ({n_ty},{n_tx})", flush=True)
 
-    writer = ThreadPoolExecutor(1)  # ONE thread: keeps the store order,
-    store_futs = deque()            # and so the checkpoint kill-safety
+    # ONE thread: keeps the store order, and so the checkpoint kill-safety
+    writer = ThreadPoolExecutor(1, thread_name_prefix="tiling.writer")
+    store_futs = deque()
 
     def submit_store(key, bounds, payload, specs):
         store_futs.append(writer.submit(store, key, bounds, payload, specs))
-        t0 = time.perf_counter()
-        while len(store_futs) > 8:
-            store_futs.popleft().result()
+        with profiling.span("tiling.store_wait"):
+            t0 = time.perf_counter()
+            while len(store_futs) > 8:
+                store_futs.popleft().result()
         _phase("store_wait", t0)
 
     def drain_stores():
-        t0 = time.perf_counter()
-        try:
-            while store_futs:
-                store_futs.popleft().result()
-        finally:
-            writer.shutdown(wait=True)
+        with profiling.span("tiling.store_wait"):
+            t0 = time.perf_counter()
+            try:
+                while store_futs:
+                    store_futs.popleft().result()
+            finally:
+                writer.shutdown(wait=True)
         _phase("store_wait", t0)
 
     def finish():
@@ -468,189 +483,202 @@ def tiled_apply(fn, Z, tile_size, overlap, out=None, out_dtype=None,
         return r0, min(r0 + ts, H), c0, min(c0 + ts, W)
 
     def host_tile(tp, bounds):
-        t0 = time.perf_counter()
-        buf, handle = tp.stage((B, B), src_dt)
+        with profiling.span("tiling.upload", parent=loop):
+            t0 = time.perf_counter()
+            buf, handle = tp.stage((B, B), src_dt)
         _phase("upload", t0)
-        t0 = time.perf_counter()
-        fill_block(buf, *bounds)
+        with profiling.span("tiling.read", parent=loop):
+            t0 = time.perf_counter()
+            fill_block(buf, *bounds)
         _phase("host_read", t0)
-        t0 = time.perf_counter()
-        block = tp.upload(handle).view(src_tdt)
+        with profiling.span("tiling.upload", parent=loop):
+            t0 = time.perf_counter()
+            block = tp.upload(handle).view(src_tdt)
         _phase("upload", t0)
         return block
 
-    t_total = time.perf_counter()
-    work = [(ty, tx) for ty in range(n_ty) for tx in range(n_tx)
-            if not (ckpt and ckpt.is_done((ty, tx)))]
-    _ps["tiles"] = _ps.get("tiles", 0) + len(work)
+    # the tile loop ('total'); the producer's and the writer's spans name
+    # its span as their parent
+    with profiling.span("tiling.loop") as loop:
+        t_total = time.perf_counter()
+        work = [(ty, tx) for ty in range(n_ty) for tx in range(n_tx)
+                if not (ckpt and ckpt.is_done((ty, tx)))]
+        _ps["tiles"] = _ps.get("tiles", 0) + len(work)
 
-    if mesh_wire_fn is not None:
-        devs = [torch.device(d) for d in np.asarray(
-            mesh.devices, dtype=object).reshape(-1)]
-        D = len(devs)
-        tps = {}
-        for d in devs:
-            if d not in tps:
-                tps[d] = _Transport(d, n_tiles=(depth + 2) * D)
-        if multi is None:
-            multi = True
+        if mesh_wire_fn is not None:
+            devs = [torch.device(d) for d in np.asarray(
+                mesh.devices, dtype=object).reshape(-1)]
+            D = len(devs)
+            tps = {}
+            for d in devs:
+                if d not in tps:
+                    tps[d] = _Transport(d, n_tiles=(depth + 2) * D)
+            if multi is None:
+                multi = True
 
-        def flush_group():
-            group = inflight.popleft()
-            for key, bounds, rb in group:
+            def flush_group():
+                group = inflight.popleft()
+                for key, bounds, rb in group:
+                    with profiling.span("tiling.readback_wait"):
+                        t0 = time.perf_counter()
+                        rb.wait()
+                    _phase("readback_wait", t0)
+                    submit_store(key, bounds, [rb], wire_specs)
+
+            try:
+                for g in range(0, len(work), D):
+                    keys = work[g:g + D]
+                    blocks = [host_tile(tps[d], bounds_of(k))
+                              for k, d in zip(keys, devs)]
+                    # a final partial group repeats its last tile; those
+                    # results are never read back
+                    for d in devs[len(blocks):]:
+                        blocks.append(blocks[-1].view(_CARRIER.get(
+                            src_tdt, src_tdt)).to(d).view(src_tdt))
+                    with profiling.span("tiling.dispatch"):
+                        t0 = time.perf_counter()
+                        bufs = mesh_wire_fn(blocks)
+                        group = [(k, bounds_of(k), tps[d].download([[b]])[0])
+                                 for k, d, b in zip(keys, devs, bufs)]
+                    _dispatched(t0, tps.values())
+                    inflight.append(group)
+                    while len(inflight) > depth:
+                        flush_group()
+                while inflight:
+                    flush_group()
+            finally:
+                drain_stores()
+            return finish()
+
+        dev = resolve_device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        tp = _Transport(dev, n_tiles=depth + 3)
+        if device_input == "auto":
+            device_input = (src_dt not in _NARROWED_BY_JAX
+                            and Z.nbytes <= int(device_input_budget))
+        rows_on_device = {}
+        stripe = {}
+
+        def device_tile(r0, c0):
+            """The tile's window as a slice of its tile row's stripe: source
+            rows [r0 - ov, r0 + ts + ov), edge-replicated beyond the raster
+            and padded as the host path pads, built from row chunks of
+            ``tile_size`` rows, each uploaded once (lazily, so a resumed run
+            that skips a tile row never uploads it)."""
+            ti = r0 // ts
+            if ti not in stripe:
+                lo, hi = max(r0 - ov, 0), min(r0 + ts + ov, H)
+                first, last = lo // ts, -(-hi // ts)
+                for j in [j for j in rows_on_device if j < first]:
+                    del rows_on_device[j]
+                for j in range(first, last):
+                    if j not in rows_on_device:
+                        a, b = j * ts, min((j + 1) * ts, H)
+                        buf, handle = tp.stage((b - a, W), src_dt)
+                        buf[:] = Z[a:b]
+                        rows_on_device[j] = tp.upload(handle)
+                rows = [rows_on_device[j] for j in range(first, last)]
+                rows = rows[0] if len(rows) == 1 else torch.cat(rows)
+                rows = rows[lo - first * ts:hi - first * ts]
+                stripe.clear()
+                stripe[ti] = pad_edge(rows, ((max(ov - r0, 0),
+                                              max(r0 + ts + ov - H, 0)),
+                                             (ov, n_tx * ts - W + ov)))
+            return stripe[ti][:, c0:c0 + B].contiguous().view(src_tdt)
+
+        def acquire(key):
+            bounds = bounds_of(key)
+            if device_input:
+                with profiling.span("tiling.upload", parent=loop):
+                    t0 = time.perf_counter()
+                    block = device_tile(bounds[0], bounds[2])
+                _phase("upload", t0)
+            else:
+                block = host_tile(tp, bounds)
+            return key, bounds, block
+
+        def process(item):
+            nonlocal multi
+            key, bounds, block = item
+            with profiling.span("tiling.dispatch"):
                 t0 = time.perf_counter()
-                rb.wait()
-                _phase("readback_wait", t0)
-                submit_store(key, bounds, [rb], wire_specs)
+                if wire_fn is not None:
+                    payload = tp.download([list(wire_fn(block))])
+                    specs = wire_specs
+                    if multi is None:
+                        multi = True
+                else:
+                    res = fn(block)
+                    if multi is None:
+                        multi = isinstance(res, (tuple, list))
+                    res = res if isinstance(res, (tuple, list)) else (res,)
+                    # crop the overlap on the device: only the core comes back
+                    core = np.s_[ov:ov + ts, ov:ov + ts]
+                    rbs = iter(tp.download([[a[core]] for a in res
+                                            if isinstance(a, torch.Tensor)]))
+                    payload = [next(rbs) if isinstance(a, torch.Tensor)
+                               else np.asarray(a)[core] for a in res]
+                    specs = None
+            _dispatched(t0, (tp,))
+            inflight.append((key, bounds, payload, specs))
+            while len(inflight) > depth:
+                flush_one()
+
+        def flush_one():
+            key, bounds, payload, specs = inflight.popleft()
+            with profiling.span("tiling.readback_wait"):
+                t0 = time.perf_counter()
+                for p in payload:
+                    if isinstance(p, _Readback):
+                        p.wait()
+            _phase("readback_wait", t0)
+            submit_store(key, bounds, payload, specs)
 
         try:
-            for g in range(0, len(work), D):
-                keys = work[g:g + D]
-                blocks = [host_tile(tps[d], bounds_of(k))
-                          for k, d in zip(keys, devs)]
-                # a final partial group repeats its last tile; those
-                # results are never read back
-                for d in devs[len(blocks):]:
-                    blocks.append(blocks[-1].view(_CARRIER.get(
-                        src_tdt, src_tdt)).to(d).view(src_tdt))
-                t0 = time.perf_counter()
-                bufs = mesh_wire_fn(blocks)
-                group = [(k, bounds_of(k), tps[d].download([[b]])[0])
-                         for k, d, b in zip(keys, devs, bufs)]
-                _dispatched(t0, tps.values())
-                inflight.append(group)
-                while len(inflight) > depth:
-                    flush_group()
+            if prefetch:
+                q = queue.Queue(maxsize=2)
+                stop = threading.Event()
+
+                def producer():
+                    try:
+                        if tp.cuda:
+                            torch.cuda.set_device(dev)
+                        for key in work:
+                            if stop.is_set():
+                                return
+                            q.put(acquire(key))
+                        q.put(None)
+                    except BaseException as e:  # raised on the dispatch thread
+                        q.put(("__error__", e))
+
+                prod = threading.Thread(target=producer, daemon=True,
+                                        name="tiling.producer")
+                prod.start()
+                try:
+                    while True:
+                        item = q.get()
+                        if item is None:
+                            break
+                        if item[0] == "__error__":
+                            raise item[1]
+                        process(item)
+                finally:
+                    stop.set()
+                    while prod.is_alive():  # unblock a q.put on backpressure
+                        try:
+                            q.get_nowait()
+                        except queue.Empty:
+                            pass
+                        prod.join(timeout=0.1)
+            else:
+                for key in work:
+                    process(acquire(key))
             while inflight:
-                flush_group()
+                flush_one()
         finally:
             drain_stores()
         return finish()
-
-    dev = resolve_device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    tp = _Transport(dev, n_tiles=depth + 3)
-    if device_input == "auto":
-        device_input = (src_dt not in _NARROWED_BY_JAX
-                        and Z.nbytes <= int(device_input_budget))
-    rows_on_device = {}
-    stripe = {}
-
-    def device_tile(r0, c0):
-        """The tile's window as a slice of its tile row's stripe: source
-        rows [r0 - ov, r0 + ts + ov), edge-replicated beyond the raster
-        and padded as the host path pads, built from row chunks of
-        ``tile_size`` rows, each uploaded once (lazily, so a resumed run
-        that skips a tile row never uploads it)."""
-        ti = r0 // ts
-        if ti not in stripe:
-            lo, hi = max(r0 - ov, 0), min(r0 + ts + ov, H)
-            first, last = lo // ts, -(-hi // ts)
-            for j in [j for j in rows_on_device if j < first]:
-                del rows_on_device[j]
-            for j in range(first, last):
-                if j not in rows_on_device:
-                    a, b = j * ts, min((j + 1) * ts, H)
-                    buf, handle = tp.stage((b - a, W), src_dt)
-                    buf[:] = Z[a:b]
-                    rows_on_device[j] = tp.upload(handle)
-            rows = [rows_on_device[j] for j in range(first, last)]
-            rows = rows[0] if len(rows) == 1 else torch.cat(rows)
-            rows = rows[lo - first * ts:hi - first * ts]
-            stripe.clear()
-            stripe[ti] = pad_edge(rows, ((max(ov - r0, 0),
-                                          max(r0 + ts + ov - H, 0)),
-                                         (ov, n_tx * ts - W + ov)))
-        return stripe[ti][:, c0:c0 + B].contiguous().view(src_tdt)
-
-    def acquire(key):
-        bounds = bounds_of(key)
-        if device_input:
-            t0 = time.perf_counter()
-            block = device_tile(bounds[0], bounds[2])
-            _phase("upload", t0)
-        else:
-            block = host_tile(tp, bounds)
-        return key, bounds, block
-
-    def process(item):
-        nonlocal multi
-        key, bounds, block = item
-        t0 = time.perf_counter()
-        if wire_fn is not None:
-            payload, specs = tp.download([list(wire_fn(block))]), wire_specs
-            if multi is None:
-                multi = True
-        else:
-            res = fn(block)
-            if multi is None:
-                multi = isinstance(res, (tuple, list))
-            res = res if isinstance(res, (tuple, list)) else (res,)
-            # crop the overlap on the device: only the core comes back
-            core = np.s_[ov:ov + ts, ov:ov + ts]
-            rbs = iter(tp.download([[a[core]] for a in res
-                                    if isinstance(a, torch.Tensor)]))
-            payload = [next(rbs) if isinstance(a, torch.Tensor)
-                       else np.asarray(a)[core] for a in res]
-            specs = None
-        _dispatched(t0, (tp,))
-        inflight.append((key, bounds, payload, specs))
-        while len(inflight) > depth:
-            flush_one()
-
-    def flush_one():
-        key, bounds, payload, specs = inflight.popleft()
-        t0 = time.perf_counter()
-        for p in payload:
-            if isinstance(p, _Readback):
-                p.wait()
-        _phase("readback_wait", t0)
-        submit_store(key, bounds, payload, specs)
-
-    try:
-        if prefetch:
-            q = queue.Queue(maxsize=2)
-            stop = threading.Event()
-
-            def producer():
-                try:
-                    if tp.cuda:
-                        torch.cuda.set_device(dev)
-                    for key in work:
-                        if stop.is_set():
-                            return
-                        q.put(acquire(key))
-                    q.put(None)
-                except BaseException as e:  # raised on the dispatch thread
-                    q.put(("__error__", e))
-
-            prod = threading.Thread(target=producer, daemon=True)
-            prod.start()
-            try:
-                while True:
-                    item = q.get()
-                    if item is None:
-                        break
-                    if item[0] == "__error__":
-                        raise item[1]
-                    process(item)
-            finally:
-                stop.set()
-                while prod.is_alive():  # unblock a q.put on backpressure
-                    try:
-                        q.get_nowait()
-                    except queue.Empty:
-                        pass
-                    prod.join(timeout=0.1)
-        else:
-            for key in work:
-                process(acquire(key))
-        while inflight:
-            flush_one()
-    finally:
-        drain_stores()
-    return finish()
 
 
 def apply_parallel(function, array, chunks=None, depth=0,

@@ -87,7 +87,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .. import _build
+from .. import _build, profiling
 from ..core.codes import progressive_window
 from ..core.shift import OFFSETS, STEP_LENGTH
 
@@ -719,7 +719,8 @@ def _run_entry(Z, entry, args):
     lib = _build.load()
     with torch.cuda.device(Z.device):
         stream = torch.cuda.current_stream(Z.device).cuda_stream
-        err = getattr(lib, entry)(*args, stream)
+        with profiling.device_time(Z.device):
+            err = getattr(lib, entry)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{entry} failed: CUDA error {err}")
 
@@ -732,20 +733,22 @@ def _launch(Z, entry, cellsize, lookup_pixels, fast, how_fast, *args,
     geometry ``tiles``, ``{}`` for a whole raster), then K5's region plan
     if ``plan``, then ``args``, on Z's device and current stream
     (:func:`_run_entry`); a launch on the tile path is counted in
-    ``tile_loads``."""
-    ladder = _ladder(int(lookup_pixels), fast, how_fast)
-    Rmax = ladder[-1]
-    ladder_t, scales = _device_tables(float(cellsize), ladder, Z.device)
-    dense = ladder == tuple(range(1, len(ladder) + 1))
-    H, W = Z.shape
-    tile = (() if tiles is None
-            else _tile_args(Z, Rmax, len(ladder), plan, **tiles))
-    _run_entry(Z, entry, (
-        Z.data_ptr(), H, W, ladder_t.data_ptr(), scales.data_ptr(),
-        len(ladder), Rmax, int(dense), _ALLOW_MASKLESS, *tile,
-        *(region_plan(H, W, Rmax) if plan else ()), *args))
-    if any(tile):
-        tile_loads[(H, W, tile[-1])] += 1
+    ``tile_loads``.  The launch is the span ``cuda_scan.launch`` with the
+    entry's name, its device time that of the entry call alone."""
+    with profiling.span("cuda_scan.launch", attr=entry):
+        ladder = _ladder(int(lookup_pixels), fast, how_fast)
+        Rmax = ladder[-1]
+        ladder_t, scales = _device_tables(float(cellsize), ladder, Z.device)
+        dense = ladder == tuple(range(1, len(ladder) + 1))
+        H, W = Z.shape
+        tile = (() if tiles is None
+                else _tile_args(Z, Rmax, len(ladder), plan, **tiles))
+        _run_entry(Z, entry, (
+            Z.data_ptr(), H, W, ladder_t.data_ptr(), scales.data_ptr(),
+            len(ladder), Rmax, int(dense), _ALLOW_MASKLESS, *tile,
+            *(region_plan(H, W, Rmax) if plan else ()), *args))
+        if any(tile):
+            tile_loads[(H, W, tile[-1])] += 1
 
 
 def _outputs(out, shape, dtype, device, name, n=2):

@@ -34,6 +34,7 @@ import math
 import numpy as np
 import torch
 
+from .. import profiling
 from ..core.codes import (geomorphon_cmap, jasiewicz_stepinski_table,
                           lowest_equivalent_table)
 from ..core.device import to_device
@@ -178,9 +179,11 @@ def count_openness(Z, cellsize, lookup_pixels, threshold_angle, fast=False,
 def classes_from_counts(num_pos, num_neg):
     """J&S 9x9 table lookup: class = table[num_pos, num_neg], a gather
     on the 81-entry table."""
-    tbl = torch.from_numpy(jasiewicz_stepinski_table().ravel())
-    idx = num_pos.long() * 9 + num_neg.long()
-    return tbl.to(num_pos.device)[idx]
+    with profiling.span("visibility.classes_from_counts",
+                        device=num_pos.device):
+        tbl = torch.from_numpy(jasiewicz_stepinski_table().ravel())
+        idx = num_pos.long() * 9 + num_neg.long()
+        return tbl.to(num_pos.device)[idx]
 
 
 def geomorphons(Z, cellsize=1, lookup_pixels=1, threshold_angle=1,
@@ -188,24 +191,28 @@ def geomorphons(Z, cellsize=1, lookup_pixels=1, threshold_angle=1,
                 device=None):
     """Geomorphon classes 1-10 (uint8 tensor) from openness counts + the
     J&S 9x9 lookup (neilpy.py:1617-1654), with the optional 'enhance'
-    correction-of-forms second pass.
+    correction-of-forms second pass.  While a ``torch.profiler`` profile
+    is open the call is the span ``visibility.geomorphons``
+    (``profiling.span``), its launches and class lookups spans inside it.
     """
-    Z = as_raster(Z, device)
+    with profiling.span("visibility.geomorphons"):
+        with profiling.span("visibility.as_raster"):
+            Z = as_raster(Z, device)
 
-    def classes(lp, f=False):
-        num_pos, num_neg = openness_counts(
-            Z, cellsize=float(cellsize), lookup_pixels=int(lp),
-            threshold_angle=float(threshold_angle), fast=f,
-            how_fast=int(how_fast), engine=engine)
-        return classes_from_counts(num_pos, num_neg)
+        def classes(lp, f=False):
+            num_pos, num_neg = openness_counts(
+                Z, cellsize=float(cellsize), lookup_pixels=int(lp),
+                threshold_angle=float(threshold_angle), fast=f,
+                how_fast=int(how_fast), engine=engine)
+            return classes_from_counts(num_pos, num_neg)
 
-    G = classes(lookup_pixels, bool(fast))
-    if enhance and lookup_pixels > 16:
-        G_sm = classes(max(int(np.floor(lookup_pixels / 4)), 4))
-        G = G.masked_fill((G == 4) & (G_sm == 1), 1)
-        G = G.masked_fill((G == 8) & (G_sm == 1), 1)
-        G = torch.where((G == 2) | (G == 3), G_sm, G)
-    return G
+        G = classes(lookup_pixels, bool(fast))
+        if enhance and lookup_pixels > 16:
+            G_sm = classes(max(int(np.floor(lookup_pixels / 4)), 4))
+            G = G.masked_fill((G == 4) & (G_sm == 1), 1)
+            G = G.masked_fill((G == 8) & (G_sm == 1), 1)
+            G = torch.where((G == 2) | (G == 3), G_sm, G)
+        return G
 
 
 # Aliases used in the reference notebooks

@@ -41,6 +41,7 @@ import os
 import numpy as np
 import torch
 
+from .. import profiling
 from ..core.device import resolve_device
 from ..dist.tiling import _pack_device, tiled_apply
 from ..ops.cuda_scan import (openness_counts, openness_degrees,
@@ -443,97 +444,107 @@ def mosaic_terrain_products(Z, cellsize=1, lookup_pixels=25,
     (max - min) / 65534; non-finite cells kept by a sentinel): the mosaic
     then equals the mosaic of ``_QuantizedSource.dequantized()``, while
     moran/gi still z-normalise against the original raster's moments.
-    Sources of <= 2 bytes per pixel are shipped as they are."""
-    products = _normalize_products(products, gi_star, openness)
-    if np.isscalar(windows):
-        windows = np.arange(windows) + 1
-    windows = np.atleast_1d(np.asarray(windows))
-    ov = required_overlap(lookup_pixels, windows, gi_radius, products)
+    Sources of <= 2 bytes per pixel are shipped as they are.
 
-    if not (hasattr(Z, "shape") and hasattr(Z, "dtype")
-            and hasattr(Z, "__getitem__")):
-        Z = np.asarray(Z)
-    if upload_dtype not in (None, "uint16"):
-        raise ValueError("upload_dtype must be None or 'uint16'")
-    # validate before the (possibly whole-raster) moments pass
-    if float_wire is None:
-        float_wire = "bf16"
-    if float_wire not in ("bf16", "uint8"):
-        raise ValueError("float_wire must be 'bf16' or 'uint8'")
-    if wire == "auto":
-        wire = "exact"
-    if wire not in ("exact", "compact"):
-        raise ValueError("wire must be 'auto', 'exact' or 'compact'")
-    if mesh is not None:
-        devs = [torch.device(d)
-                for d in np.asarray(mesh.devices, dtype=object).reshape(-1)]
-    else:
-        devs = [resolve_device(device)]
-    on_card = all(d.type == "cuda" for d in devs)
-    if use_pallas is None:
-        use_pallas = on_card
-    if use_pallas and not on_card:
-        raise ValueError("use_pallas=True runs the CUDA kernels and needs "
-                         "CUDA devices; use_pallas=False runs their plain "
-                         "versions on the CPU")
+    While a ``torch.profiler`` profile is open the call is the span
+    ``mosaic.call``, its moments pass ``mosaic.moments`` and the tile loop
+    ``tiled_apply``'s spans (``profiling.span``)."""
+    with profiling.span("mosaic.call"):
+        products = _normalize_products(products, gi_star, openness)
+        if np.isscalar(windows):
+            windows = np.arange(windows) + 1
+        windows = np.atleast_1d(np.asarray(windows))
+        ov = required_overlap(lookup_pixels, windows, gi_radius, products)
 
-    quantize = (upload_dtype == "uint16"
-                and np.dtype(Z.dtype).itemsize > 2)
-    mean = s2 = 0.0
-    n_finite = 0
-    qlo = qhi = 0.0
-    if {"moran", "gi"} & set(products) or quantize:
-        mean, s2, n_finite, qlo, qhi = _global_moments(Z, checkpoint,
-                                                       quantize)
-    win = tuple(int(w) for w in windows) if "objects" in products else ()
-    qscale = qoff = 0.0
-    if quantize:
-        Z = _QuantizedSource(Z, qlo, qhi)
-        qscale, qoff = Z.dec_scale, Z.dec_off
+        if not (hasattr(Z, "shape") and hasattr(Z, "dtype")
+                and hasattr(Z, "__getitem__")):
+            Z = np.asarray(Z)
+        if upload_dtype not in (None, "uint16"):
+            raise ValueError("upload_dtype must be None or 'uint16'")
+        # validate before the (possibly whole-raster) moments pass
+        if float_wire is None:
+            float_wire = "bf16"
+        if float_wire not in ("bf16", "uint8"):
+            raise ValueError("float_wire must be 'bf16' or 'uint8'")
+        if wire == "auto":
+            wire = "exact"
+        if wire not in ("exact", "compact"):
+            raise ValueError("wire must be 'auto', 'exact' or 'compact'")
+        if mesh is not None:
+            devs = [torch.device(d) for d in np.asarray(
+                mesh.devices, dtype=object).reshape(-1)]
+        else:
+            devs = [resolve_device(device)]
+        on_card = all(d.type == "cuda" for d in devs)
+        if use_pallas is None:
+            use_pallas = on_card
+        if use_pallas and not on_card:
+            raise ValueError("use_pallas=True runs the CUDA kernels and needs "
+                             "CUDA devices; use_pallas=False runs their plain "
+                             "versions on the CPU")
 
-    compact = wire == "compact"
-    # a standalone objects plane bit-packs on the compact wire whenever
-    # the tile width splits into bytes
-    bitpack = (compact and "objects" in products
-               and "geomorphons" not in products
-               and int(tile_size) % 8 == 0)
-    specs = _wire_specs(compact, products, float_wire, bitpack)
-    decode = _make_decode(compact, products, float_wire, bitpack)
-    out_dtype = tuple(_OUT_DTYPE[p] for p in products)
-    body = _make_product_body(
-        float(cellsize), int(lookup_pixels), float(threshold_angle), win,
-        int(gi_radius), bool(use_pallas), bool(fast), int(how_fast), compact,
-        int(tile_size), int(ov), products, quantize, float_wire, bitpack)
-    args = {}
-    for d in devs:
-        if d not in args:
-            # the body's arguments once per device, float32 scalars on it:
-            # a number would be copied to the card in every tile, and
-            # each such copy waits for the stream
-            f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=d)
-            args[d] = (torch.as_tensor(slope_threshold * (windows * cellsize),
-                                       dtype=torch.float32, device=d),
-                       f32(mean), f32(s2), f32(n_finite), f32(qscale),
-                       f32(qoff))
-    kw = dict(tile_size=tile_size, overlap=ov, out=out, out_dtype=out_dtype,
-              checkpoint=checkpoint, progress=progress,
-              pipeline_depth=pipeline_depth, wire_specs=specs,
-              decode=decode, phase_stats=phase_stats)
+        quantize = (upload_dtype == "uint16"
+                    and np.dtype(Z.dtype).itemsize > 2)
+        mean = s2 = 0.0
+        n_finite = 0
+        qlo = qhi = 0.0
+        if {"moran", "gi"} & set(products) or quantize:
+            with profiling.span("mosaic.moments"):
+                mean, s2, n_finite, qlo, qhi = _global_moments(
+                    Z, checkpoint, quantize)
+        win = tuple(int(w) for w in windows) if "objects" in products else ()
+        qscale = qoff = 0.0
+        if quantize:
+            Z = _QuantizedSource(Z, qlo, qhi)
+            qscale, qoff = Z.dec_scale, Z.dec_off
 
-    if mesh is not None:
-        return tiled_apply(
-            None, Z, mesh=mesh,
-            mesh_wire_fn=lambda blocks: [body(b, *args[d])
-                                         for b, d in zip(blocks, devs)],
-            **kw)
+        compact = wire == "compact"
+        # a standalone objects plane bit-packs on the compact wire whenever
+        # the tile width splits into bytes
+        bitpack = (compact and "objects" in products
+                   and "geomorphons" not in products
+                   and int(tile_size) % 8 == 0)
+        specs = _wire_specs(compact, products, float_wire, bitpack)
+        decode = _make_decode(compact, products, float_wire, bitpack)
+        out_dtype = tuple(_OUT_DTYPE[p] for p in products)
+        body = _make_product_body(
+            float(cellsize), int(lookup_pixels), float(threshold_angle),
+            win, int(gi_radius), bool(use_pallas), bool(fast), int(how_fast),
+            compact, int(tile_size), int(ov), products, quantize, float_wire,
+            bitpack)
+        args = {}
+        for d in devs:
+            if d not in args:
+                # the body's arguments once per device, float32 scalars on
+                # it: a number would be copied to the card in every tile,
+                # and each such copy waits for the stream
+                f32 = lambda v: torch.tensor(v, dtype=torch.float32,
+                                             device=d)
+                args[d] = (torch.as_tensor(
+                    slope_threshold * (windows * cellsize),
+                    dtype=torch.float32, device=d),
+                    f32(mean), f32(s2), f32(n_finite), f32(qscale),
+                    f32(qoff))
+        kw = dict(tile_size=tile_size, overlap=ov, out=out,
+                  out_dtype=out_dtype, checkpoint=checkpoint,
+                  progress=progress, pipeline_depth=pipeline_depth,
+                  wire_specs=specs, decode=decode, phase_stats=phase_stats)
 
-    dev = devs[0]
-    del wire_chunks
+        if mesh is not None:
+            return tiled_apply(
+                None, Z, mesh=mesh,
+                mesh_wire_fn=lambda blocks: [body(b, *args[d])
+                                             for b, d in zip(blocks, devs)],
+                **kw)
 
-    def wire_fn(block):
-        return [body(block, *args[dev])]
+        dev = devs[0]
+        del wire_chunks
 
-    if prefetch is None:
-        prefetch = dev.type == "cuda"
-    return tiled_apply(None, Z, wire_fn=wire_fn, device_input=device_input,
-                       prefetch=prefetch, device=dev, **kw)
+        def wire_fn(block):
+            return [body(block, *args[dev])]
+
+        if prefetch is None:
+            prefetch = dev.type == "cuda"
+        return tiled_apply(None, Z, wire_fn=wire_fn,
+                           device_input=device_input, prefetch=prefetch,
+                           device=dev, **kw)

@@ -1,5 +1,5 @@
-"""Performance observability: throughput counters, device-trace capture
-and a first-call report.
+"""Performance observability: throughput counters, device-trace capture,
+spans inside the port and a first-call report.
 
 Counterpart of ``neilpy_tpu/profiling.py`` on CUDA and
 ``torch.profiler``, with the same names and arguments:
@@ -14,7 +14,16 @@ Counterpart of ``neilpy_tpu/profiling.py`` on CUDA and
   activity where there is a card) and writes a Chrome / Perfetto trace
   JSON into its directory.  The hand kernels launch through ``ctypes``,
   outside torch's dispatcher, and show in it as CUDA kernel events under
-  their ``__global__`` names.
+  their ``__global__`` names.  The profiler itself sees only the thread
+  that opened it; the trace adds the port's spans of every thread (the
+  tile stream's producer and writer too), one track per thread.
+* ``span`` — a named interval at a layer boundary of the port, recorded
+  only while a ``torch.profiler`` profile is open in the process (by
+  ``trace`` or by the caller): start and end on the clock of the
+  profiler's events (``time.time_ns``), the thread, the parent span and
+  the root span of the public call, optionally the device time between
+  two CUDA events.  ``spans()`` reads the record, ``clear_spans()``
+  empties it.  With no profile open a span is one shared null context.
 * ``compile_report`` — the seconds a first call spends building the
   port's libraries against the rest of that call.
 """
@@ -23,15 +32,20 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import itertools
+import json
 import os
+import threading
 import time
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 from torch.utils.flop_counter import FlopCounterMode
 
 from . import _build, _host_build
 
-__all__ = ["Throughput", "sync", "trace", "compile_report"]
+__all__ = ["Throughput", "sync", "trace", "compile_report", "span",
+           "device_time", "spans", "clear_spans"]
 
 
 def _tensors(x):
@@ -96,6 +110,187 @@ class Throughput:
         return False
 
 
+# ----------------------------------------------------------------------
+# spans
+# ----------------------------------------------------------------------
+_NULL = contextlib.nullcontext()
+_RECORD = []                 # closed spans, in the order they closed
+_IDS = itertools.count(1)
+_LOCAL = threading.local()   # .stack: the calling thread's open spans
+
+
+def _open_spans():
+    stack = getattr(_LOCAL, "stack", None)
+    if stack is None:
+        stack = _LOCAL.stack = []
+    return stack
+
+
+# the profiler's event for a span on its own thread: the C++ record
+# function, which keeps the interpreter lock and returns within a few
+# microseconds of its stamps (``record_function`` releases the lock, so
+# with other threads busy it returns up to hundreds of microseconds late)
+_annotation = getattr(torch._C._profiler, "_RecordFunctionFast",
+                      torch.profiler.record_function)
+
+
+def _cuda_event(device):
+    event = torch.cuda.Event(enable_timing=True)
+    event.record(torch.cuda.current_stream(device))
+    return event
+
+
+class Span:
+    """One span of the record (:func:`span`): ``name``; ``start_ns`` and
+    ``end_ns`` on ``time.time_ns``'s clock, the Unix clock of the
+    profiler's own events; ``thread`` (the thread's name); ``id``;
+    ``parent`` (the parent span's id, None for a root); ``root`` (the id
+    of the root span, shared by every span of one public call); ``attr``
+    (a detail, such as the C entry a launch called, or None); and
+    ``device_ms``, the milliseconds between its pairs of CUDA events
+    (None without any), filled in when :func:`spans` reads the record."""
+
+    __slots__ = ("name", "id", "parent", "root", "thread", "attr",
+                 "start_ns", "end_ns", "device_ms", "_device", "_events",
+                 "_annotation")
+
+    def __init__(self, name, parent, device, attr):
+        stack = _open_spans()
+        if parent is None and stack:
+            parent = stack[-1]
+        self.name = name
+        self.id = next(_IDS)
+        self.parent = None if parent is None else parent.id
+        self.root = self.id if parent is None else parent.root
+        self.thread = threading.current_thread().name
+        self.attr = attr
+        self.start_ns = self.end_ns = self.device_ms = None
+        self._device = device
+        self._events = []        # CUDA events, a (start, end) pair each
+        self._annotation = None
+
+    def __enter__(self):
+        _open_spans().append(self)
+        if torch._C._autograd._profiler_enabled():
+            # the profiler's own thread: the span is in its events too,
+            # and the clock is read just after each of their stamps
+            self._annotation = _annotation(self.name)
+            self._annotation.__enter__()
+        self.start_ns = time.time_ns()
+        if self._device is not None:
+            self._events.append(_cuda_event(self._device))
+        return self
+
+    def __exit__(self, *exc):
+        if self._device is not None:
+            self._events.append(_cuda_event(self._device))
+        if self._annotation is not None:
+            self._annotation.__exit__(*exc)
+            self._annotation = None
+        _open_spans().pop()
+        self.end_ns = time.time_ns()
+        _RECORD.append(self)
+        return False
+
+
+def span(name, parent=None, device=None, attr=None):
+    """A context manager that records the block as span ``name`` while a
+    ``torch.profiler`` profile is open anywhere in the process (the
+    process-wide flag, which every thread reads; the profiler records
+    only the thread that opened it).  Otherwise it returns one shared
+    null context and records, allocates and formats nothing, so ``name``
+    is a constant string at every call site.
+
+    The parent is ``parent`` (a span a caller's thread opened: worker
+    threads pass their call's span), else the innermost span the calling
+    thread has open; a span with neither is the root of a public call.
+    On the profiler's own thread the span is also a record function of
+    the same name (torch's C++ ``_RecordFunctionFast`` where it has one,
+    else ``torch.profiler.record_function``), so it appears among the
+    profiler's events and in exported traces.  ``device`` (a CUDA device;
+    anything else is ignored) records a pair of timing events on its
+    current stream around the block.  ``with span(...) as s`` binds the
+    span, or None when nothing is recorded."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NULL
+    if device is not None and torch.device(device).type != "cuda":
+        device = None
+    return Span(name, parent, device, attr)
+
+
+class _DeviceTime:
+    __slots__ = ("span", "device")
+
+    def __init__(self, owner, device):
+        self.span, self.device = owner, device
+
+    def __enter__(self):
+        self.span._events.append(_cuda_event(self.device))
+
+    def __exit__(self, *exc):
+        self.span._events.append(_cuda_event(self.device))
+        return False
+
+
+def device_time(device):
+    """A context manager that records a pair of CUDA timing events on
+    ``device``'s current stream around the block, whose milliseconds add
+    to the ``device_ms`` of the calling thread's innermost open span: a
+    span's device time over part of its block.  A shared null context
+    when no profile is open, no span is, or ``device`` is not a CUDA
+    device."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NULL
+    stack = getattr(_LOCAL, "stack", None)
+    if not stack or torch.device(device).type != "cuda":
+        return _NULL
+    return _DeviceTime(stack[-1], device)
+
+
+def spans():
+    """The record: every span closed while a profile was open, since the
+    process started or the last :func:`clear_spans`, in the order they
+    closed (a list of :class:`Span`).  Reading it resolves each span's
+    CUDA events into ``device_ms``, waiting for them where the device
+    has not reached them yet."""
+    out = list(_RECORD)
+    for s in out:
+        if s._events:
+            events, s._events = s._events, []
+            ms = 0.0
+            for a, b in zip(events[::2], events[1::2]):
+                b.synchronize()
+                ms += a.elapsed_time(b)
+            s.device_ms = ms
+    return out
+
+
+def clear_spans():
+    """Empty the record of spans."""
+    _RECORD.clear()
+
+
+def _add_spans(path, record):
+    """Write the spans of ``record`` into the Chrome trace JSON at ``path``,
+    one track per thread under the process ``neilpy_tpu_torch spans``,
+    on the file's time origin (``baseTimeNanoseconds``, where it has
+    one)."""
+    with open(path) as f:
+        doc = json.load(f)
+    base = int(doc.get("baseTimeNanoseconds", 0))
+    for s in record:
+        args = {k: getattr(s, k) for k in ("id", "parent", "root", "attr",
+                                           "device_ms")
+                if getattr(s, k) is not None}
+        doc["traceEvents"].append({
+            "ph": "X", "cat": "span", "name": s.name,
+            "pid": "neilpy_tpu_torch spans", "tid": s.thread,
+            "ts": (s.start_ns - base) / 1e3,
+            "dur": (s.end_ns - s.start_ns) / 1e3, "args": args})
+    with open(path, "w") as f:
+        json.dump(doc, f)
+
+
 @contextlib.contextmanager
 def trace(log_dir="/tmp/neilpy_tpu_torch_trace"):
     """Capture a trace viewable in Perfetto / ``chrome://tracing``:
@@ -103,10 +298,14 @@ def trace(log_dir="/tmp/neilpy_tpu_torch_trace"):
     >>> with trace("/tmp/tr"):
     ...     sync(smrf(x, y, z, 1, 18))
 
-    Records CPU activity, and CUDA activity when CUDA is available (the
-    card is synchronised before the profiler stops, so every kernel
-    launched inside the block is in the trace).  On a normal exit it
-    writes ``trace_<pid>_<ns>.json`` into ``log_dir`` (created); an
+    Records CPU activity of the calling thread, and CUDA activity when
+    CUDA is available (the card is synchronised before the profiler
+    stops, so every kernel launched inside the block is in the trace).
+    The record of spans is cleared on entry; the port's spans of every
+    thread (``span``: the calling thread's, and those of the tile
+    stream's producer and writer threads, which the profiler does not
+    see) go into the same file, one track per thread.  On a normal exit
+    it writes ``trace_<pid>_<ns>.json`` into ``log_dir`` (created); an
     exception raised inside the block propagates and writes nothing.
     """
     activities = [torch.profiler.ProfilerActivity.CPU]
@@ -114,12 +313,14 @@ def trace(log_dir="/tmp/neilpy_tpu_torch_trace"):
     if cuda:
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
+    clear_spans()
     with torch.profiler.profile(activities=activities) as prof:
         yield log_dir
         if cuda:
             torch.cuda.synchronize()
-    prof.export_chrome_trace(os.path.join(
-        log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+    path = os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")
+    prof.export_chrome_trace(path)
+    _add_spans(path, spans())
 
 
 @functools.cache
