@@ -37,6 +37,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -343,20 +344,25 @@ def _make_decode(compact, products, float_wire="bf16", bitpack=False):
     return decode if (compact or combine) else None
 
 
-def _global_moments(Z, checkpoint, quantize):
-    """(mean, s2, n_finite, qlo, qhi): one streaming pass over the input
-    in 4096-row blocks with float64 accumulators (the JAX package's
-    arithmetic), cached beside the tile checkpoint (``<checkpoint>
-    .moments``) and trusted only for the same input
-    (``_input_fingerprint``), so a resumed run does not re-read it."""
-    mom_path = (str(checkpoint) + ".moments") if checkpoint else None
-    input_fp = _input_fingerprint(Z) if mom_path else None
-    if mom_path and os.path.exists(mom_path):
-        with open(mom_path) as f:
-            mom = json.load(f)
-        if mom.get("input_fp") == input_fp and (not quantize or "qlo" in mom):
-            return (mom["mean"], mom["s2"], int(mom["n_finite"]),
-                    float(mom.get("qlo", 0.0)), float(mom.get("qhi", 0.0)))
+#: bytes of one staged block of the card's moments pass (1024 rows of a
+#: 16,384-wide float32 source)
+_STAGE_BYTES = 64 << 20
+
+#: threads that copy a block into its pinned buffer: one numpy copy out
+#: of the page cache held the card's pass at about 3.6 GB/s
+_STAGE_THREADS = min(4, os.cpu_count() or 1)
+
+#: source dtypes the card's moments pass stages as they are (each cast to
+#: float32 on the card); any other is cast to float32 as it is staged
+_STAGED = {np.dtype(n): getattr(torch, n) for n in (
+    "float32", "float64", "float16", "int8", "int16", "int32", "int64",
+    "uint8", "bool")}
+
+
+def _host_sums(Z):
+    """(sum, sum of squares, finite count, min, max) over the finite cells
+    of ``Z`` cast to float32, the sums in float64: the JAX package's numpy
+    pass, one thread over 4096-row blocks."""
     gsum = gsq = 0.0
     gmin, gmax = np.inf, -np.inf
     n_finite = 0
@@ -374,17 +380,127 @@ def _global_moments(Z, checkpoint, quantize):
         gsum += float(blk.sum(dtype=np.float64))
         gsq += float(np.einsum("ij,ij->", blk, blk, dtype=np.float64))
         n_finite += int(m.sum())
+    return gsum, gsq, n_finite, gmin, gmax
+
+
+def _device_sums(Z, device):
+    """``_host_sums``'s five numbers, reduced on ``device``.
+
+    The source goes through two host buffers of ``_STAGE_BYTES`` in turn
+    (pinned for a CUDA device, so torch's caching host allocator keeps
+    them from call to call), in its own dtype (``_STAGED``; any other
+    cast to float32 as the host pass casts), each block copied in by
+    ``_STAGE_THREADS`` threads, a share of its rows each.  On a CUDA
+    device each block is copied to the card on a side stream, and the host
+    fills the other buffer meanwhile; a buffer is refilled once its copy
+    is done.  On the device a block is cast to float32, its finite cells
+    widened to float64, summed and squared there, counted in int64, and
+    their min and max taken; a block with no finite cell leaves min and
+    max at their identities.  The accumulators stay on the device and are
+    read back with one synchronise."""
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    H, W = int(Z.shape[0]), int(Z.shape[1])
+    sdt = np.dtype(Z.dtype).newbyteorder("=")
+    if sdt not in _STAGED:
+        sdt = np.dtype(np.float32)
+    rows = min(max(1, _STAGE_BYTES // max(1, W * sdt.itemsize)), max(H, 1))
+    host = [torch.empty((rows, W), dtype=_STAGED[sdt], pin_memory=cuda)
+            for _ in range(2)]
+    dev = [torch.empty((rows, W), dtype=_STAGED[sdt], device=device)
+           for _ in range(2)]
+    gsum = torch.zeros((), dtype=torch.float64, device=device)
+    gsq = torch.zeros((), dtype=torch.float64, device=device)
+    n_finite = torch.zeros((), dtype=torch.int64, device=device)
+    gmin = torch.full((), np.inf, dtype=torch.float32, device=device)
+    gmax = torch.full((), -np.inf, dtype=torch.float32, device=device)
+    if cuda:
+        main = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+    copied = [None, None]      # buffer i's last copy to the device done
+    reduced = [None, None]     # the reduction of dev[i] done
+    step = -(-rows // _STAGE_THREADS)
+    with ThreadPoolExecutor(_STAGE_THREADS) as pool:
+        for k, r0 in enumerate(range(0, H, rows)):
+            i, h = k % 2, min(rows, H - r0)
+            if copied[i] is not None:
+                copied[i].synchronize()
+            dst, src = host[i][:h].numpy(), np.asarray(Z[r0:r0 + h])
+            parts = [pool.submit(np.copyto, dst[j:j + step],
+                                 src[j:j + step], casting="unsafe")
+                     for j in range(0, h, step)]
+            for part in parts:
+                part.result()
+            if cuda:
+                with torch.cuda.stream(side):
+                    if reduced[i] is not None:
+                        side.wait_event(reduced[i])
+                    dev[i][:h].copy_(host[i][:h], non_blocking=True)
+                    copied[i] = side.record_event()
+                main.wait_event(copied[i])
+            else:
+                dev[i][:h].copy_(host[i][:h])
+            blk = dev[i][:h].float()
+            m = torch.isfinite(blk)
+            b64 = torch.where(m, blk, 0.0).double()
+            gsum += b64.sum()
+            gsq += b64.square().sum()
+            n_finite += m.sum()
+            gmin = torch.minimum(gmin, torch.where(m, blk, np.inf).amin())
+            gmax = torch.maximum(gmax, torch.where(m, blk, -np.inf).amax())
+            if cuda:
+                reduced[i] = main.record_event()
+    out = torch.stack([gsum, gsq, n_finite.double(), gmin.double(),
+                       gmax.double()]).tolist()
+    return out[0], out[1], int(out[2]), out[3], out[4]
+
+
+def _moments(sums):
+    """(mean, s2, n_finite, qlo, qhi) from ``_host_sums``' or
+    ``_device_sums``' five numbers; the range is 0 without a finite cell."""
+    gsum, gsq, n_finite, gmin, gmax = sums
     mean = gsum / max(n_finite, 1)
     s2 = gsq / max(n_finite, 1) - mean * mean
     qlo = gmin if np.isfinite(gmin) else 0.0
     qhi = gmax if np.isfinite(gmax) else 0.0
-    if mom_path:
-        tmp = mom_path + ".tmp"
-        with open(tmp, "w") as f:
-            json.dump({"mean": mean, "s2": s2, "n_finite": n_finite,
-                       "qlo": qlo, "qhi": qhi, "input_fp": input_fp}, f)
-        os.replace(tmp, mom_path)
     return mean, s2, n_finite, qlo, qhi
+
+
+def _global_moments(Z, checkpoint, quantize, device=None):
+    """(mean, s2, n_finite, qlo, qhi): one streaming pass over the input
+    with float64 accumulators (the JAX package's arithmetic), on the card
+    when ``device`` (the tiles' device) is a CUDA device
+    (``_device_sums``), else in numpy (``_host_sums``); cached beside the
+    tile checkpoint (``<checkpoint>.moments``) and trusted only for the
+    same input (``_input_fingerprint``), so a resumed run does not re-read
+    it.  While a profile is open this is the span ``mosaic.moments``,
+    whose ``attr`` names the path taken: ``"cuda"``, ``"host"``, or
+    ``"sidecar"`` where the sidecar was trusted and no pass ran."""
+    with profiling.span("mosaic.moments") as sp:
+        mom_path = (str(checkpoint) + ".moments") if checkpoint else None
+        input_fp = _input_fingerprint(Z) if mom_path else None
+        if mom_path and os.path.exists(mom_path):
+            with open(mom_path) as f:
+                mom = json.load(f)
+            if (mom.get("input_fp") == input_fp
+                    and (not quantize or "qlo" in mom)):
+                if sp is not None:
+                    sp.attr = "sidecar"
+                return (mom["mean"], mom["s2"], int(mom["n_finite"]),
+                        float(mom.get("qlo", 0.0)),
+                        float(mom.get("qhi", 0.0)))
+        on_card = device is not None and torch.device(device).type == "cuda"
+        if sp is not None:
+            sp.attr = "cuda" if on_card else "host"
+        mean, s2, n_finite, qlo, qhi = _moments(
+            _device_sums(Z, device) if on_card else _host_sums(Z))
+        if mom_path:
+            tmp = mom_path + ".tmp"
+            with open(tmp, "w") as f:
+                json.dump({"mean": mean, "s2": s2, "n_finite": n_finite,
+                           "qlo": qlo, "qhi": qhi, "input_fp": input_fp}, f)
+            os.replace(tmp, mom_path)
+        return mean, s2, n_finite, qlo, qhi
 
 
 def mosaic_terrain_products(Z, cellsize=1, lookup_pixels=25,
@@ -447,8 +563,10 @@ def mosaic_terrain_products(Z, cellsize=1, lookup_pixels=25,
     Sources of <= 2 bytes per pixel are shipped as they are.
 
     While a ``torch.profiler`` profile is open the call is the span
-    ``mosaic.call``, its moments pass ``mosaic.moments`` and the tile loop
-    ``tiled_apply``'s spans (``profiling.span``)."""
+    ``mosaic.call``, its moments pass ``mosaic.moments`` (``attr``: the
+    path taken, ``_global_moments``) and the tile loop ``tiled_apply``'s
+    spans (``profiling.span``).  The moments pass runs on the card when
+    the tiles do (the first device of ``mesh``), else in numpy."""
     with profiling.span("mosaic.call"):
         products = _normalize_products(products, gi_star, openness)
         if np.isscalar(windows):
@@ -489,9 +607,8 @@ def mosaic_terrain_products(Z, cellsize=1, lookup_pixels=25,
         n_finite = 0
         qlo = qhi = 0.0
         if {"moran", "gi"} & set(products) or quantize:
-            with profiling.span("mosaic.moments"):
-                mean, s2, n_finite, qlo, qhi = _global_moments(
-                    Z, checkpoint, quantize)
+            mean, s2, n_finite, qlo, qhi = _global_moments(
+                Z, checkpoint, quantize, devs[0])
         win = tuple(int(w) for w in windows) if "objects" in products else ()
         qscale = qoff = 0.0
         if quantize:

@@ -6,10 +6,11 @@ record stays empty; on, a CPU mosaic call records its layers on the
 caller's, the producer's and the writer's threads under one root, each
 ``tiling.*`` span timing the interval of the ``phase_stats`` key it
 echoes, on the clock of the profiler's own events; ``profiling.trace``
-writes every thread's spans; each ``portbench/metrics`` reader of them
-gives its value on a hand-built record.  No JAX here: the ``cuda`` case
-(the launch span's C entry and device time) runs on a card with
-``python3 -m pytest --noconftest -p no:cacheprovider
+writes every thread's spans; the moments span names the path it took;
+each ``portbench/metrics`` reader of them gives its value on a
+hand-built record.  No JAX here: the ``cuda`` cases (the launch span's
+C entry and device time, the moments pass on the card) run on a card
+with ``python3 -m pytest --noconftest -p no:cacheprovider
 tests/test_torch_spans.py -m cuda``."""
 
 import contextlib
@@ -119,6 +120,22 @@ def test_a_mosaic_call_records_its_layers_on_three_threads(mosaic_trace):
                for s in reads)
     assert all(loop.start_ns <= s.start_ns and s.end_ns <= loop.end_ns
                for s in stores + reads)
+
+
+@pytest.mark.parametrize("path", ["host", "sidecar"])
+def test_the_moments_span_names_the_path_taken(tmp_path, path):
+    """CPU tiles take the numpy pass; a checkpoint's trusted sidecar
+    takes none."""
+    ck = str(tmp_path / "mosaic.json")
+    if path == "sidecar":
+        ntt.mosaic_terrain_products(dem(), checkpoint=ck, **MOSAIC_KW)
+        os.remove(ck)              # the tiles run again, the moments not
+    profiling.clear_spans()
+    with cpu_profile():
+        ntt.mosaic_terrain_products(dem(), checkpoint=ck, **MOSAIC_KW)
+    (moments,) = [s for s in profiling.spans()
+                  if s.name == "mosaic.moments"]
+    assert moments.attr == path
 
 
 @pytest.mark.parametrize("key", sorted(ECHO))
@@ -324,3 +341,17 @@ def test_launch_span_names_its_entry_and_times_the_device(cuda_device, fast,
     assert launch.attr == entry and launch.root == call.id
     assert launch.device_ms > 0 and classes.device_ms > 0
     assert call.start_ns <= launch.start_ns <= launch.end_ns <= call.end_ns
+
+
+@pytest.mark.cuda
+def test_the_moments_span_names_the_card_path(cuda_device):
+    kw = dict(MOSAIC_KW, device=cuda_device)
+    ntt.mosaic_terrain_products(dem(), **kw)
+    profiling.clear_spans()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]):
+        ntt.mosaic_terrain_products(dem(), **kw)
+    (moments,) = [s for s in profiling.spans()
+                  if s.name == "mosaic.moments"]
+    assert moments.attr == "cuda"

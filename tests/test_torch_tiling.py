@@ -15,7 +15,9 @@ Tolerances: classes, object cells and Gi bins exactly; Moran's I within
 within 1e-4 degrees of JAX (XLA divides where the port multiplies by
 ``cuda_scan._ladder_scales``), bf16 planes within one bf16 step; every
 wire byte equal; tiled == untiled in the interior (``overlap`` px from
-the edge); resumed == uninterrupted, bit for bit.
+the edge); resumed == uninterrupted, bit for bit; the moments pass's
+card reducer against the numpy pass: count and range exactly, mean and
+s2 within a relative 1e-12 and on the same float32.
 """
 
 import inspect
@@ -552,6 +554,87 @@ def test_mosaic_from_geotiff_source(tmp_path):
 
 
 # ----------------------------------------------------------------------
+# the moments pass: the card's reducer against the numpy pass
+# ----------------------------------------------------------------------
+BLOCK_ROWS = 16            # rows of a staged block in the CPU cases
+MOMENT_CASES = ("nan_inf", "nonfinite_block", "all_nonfinite", "ragged",
+                "float64", "int16", "uint16", "geotiff", "memmap")
+
+
+def moments_source(case, tmp_path):
+    """The source of one moments case: a 96 x 90 random walk in units of
+    100 with the case's non-finite cells, height, dtype or storage."""
+    Z = walk(21, (101 if case == "ragged" else 96, 90)) * 100
+    if case == "nan_inf":
+        Z[3, 4] = Z[50, 7] = np.nan
+        Z[10, 80] = np.inf
+        Z[70, 0] = -np.inf
+    elif case == "nonfinite_block":
+        Z[BLOCK_ROWS:2 * BLOCK_ROWS] = np.nan      # the second block
+        Z[BLOCK_ROWS + 3, ::7] = np.inf
+        Z[5, 5] = -np.inf
+    elif case == "all_nonfinite":
+        Z[:] = np.nan
+        Z[::9, ::4] = -np.inf
+    elif case == "float64":
+        # finer than float32 holds: widening before the cast would show
+        Z = Z.astype(np.float64) + 1e-5 * np.arange(Z.shape[1])
+        Z[40, 40] = np.nan
+    elif case == "int16":
+        Z = Z.astype(np.int16)
+    elif case == "uint16":                   # staged as float32
+        Z = (Z + 5000).astype(np.uint16)
+    elif case == "geotiff":
+        Z[30:33, 20:25] = np.nan
+        fn = str(tmp_path / "dem.tif")
+        ntt.write_geotiff(fn, Z, compress="deflate", tiled=True,
+                          tile_size=32)
+        return ntt.GeoTiffSource(fn)
+    elif case == "memmap":
+        Z[60, 60] = np.nan
+        fn = str(tmp_path / "dem.f32")
+        mm = np.memmap(fn, dtype=np.float32, mode="w+", shape=Z.shape)
+        mm[:] = Z
+        mm.flush()
+        del mm
+        return np.memmap(fn, dtype=np.float32, mode="r", shape=Z.shape)
+    return Z
+
+
+def stage_rows(monkeypatch, Z, rows):
+    """Stage ``rows`` rows of ``Z`` a block in the card's pass."""
+    monkeypatch.setattr(mosaic, "_STAGE_BYTES",
+                        rows * Z.shape[1] * np.dtype(Z.dtype).itemsize)
+
+
+def assert_moments_match(got, want):
+    """The count and the range bit for bit (the quantised upload's code
+    depends on the range), mean and s2 within a relative 1e-12 (the sums'
+    order differs) and on the same float32 (what the tiles receive)."""
+    mean, s2, n, lo, hi = got
+    wmean, ws2, wn, wlo, whi = want
+    assert (n, lo, hi) == (wn, wlo, whi)
+    assert mean == pytest.approx(wmean, rel=1e-12)
+    assert s2 == pytest.approx(ws2, rel=1e-12)
+    assert np.float32(mean) == np.float32(wmean)
+    assert np.float32(s2) == np.float32(ws2)
+
+
+@pytest.mark.parametrize("case", MOMENT_CASES)
+def test_moments_card_reducer_matches_the_numpy_pass(case, tmp_path,
+                                                     monkeypatch):
+    """The card path's reducer run on CPU tensors, BLOCK_ROWS rows a
+    staged block, against the numpy pass that CPU tiles take."""
+    Z = moments_source(case, tmp_path)
+    want = mosaic._global_moments(Z, None, False, CPU)
+    assert want == mosaic._moments(mosaic._host_sums(Z))
+    stage_rows(monkeypatch, Z, BLOCK_ROWS)
+    assert_moments_match(mosaic._moments(mosaic._device_sums(Z, CPU)), want)
+    if case == "all_nonfinite":
+        assert want == (0.0, 0.0, 0, 0.0, 0.0)
+
+
+# ----------------------------------------------------------------------
 # the mesh
 # ----------------------------------------------------------------------
 @pytest.fixture(scope="module")
@@ -767,6 +850,29 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MOMENT_CASES + ("wide",))
+def test_moments_on_card_take_the_card_path(cuda_device, case, tmp_path,
+                                            monkeypatch):
+    """``_global_moments`` with CUDA tiles reduces on the card (the numpy
+    pass is made to fail) and equals the numpy pass; ``wide`` is 2500 x
+    16,384 in the pass's own 64 MiB blocks of 1024 rows."""
+    if case == "wide":
+        Z = walk(22, (2500, 16384)) * 100
+        Z[1500, ::3] = np.nan
+    else:
+        Z = moments_source(case, tmp_path)
+        stage_rows(monkeypatch, Z, BLOCK_ROWS)
+    want = mosaic._moments(mosaic._host_sums(Z))
+
+    def refuse(Z):
+        raise AssertionError("the numpy pass ran for CUDA tiles")
+
+    monkeypatch.setattr(mosaic, "_host_sums", refuse)
+    assert_moments_match(
+        mosaic._global_moments(Z, None, False, cuda_device), want)
 
 
 @pytest.mark.cuda

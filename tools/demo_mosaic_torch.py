@@ -419,7 +419,7 @@ def run(args, n, cut, dev):
     with PeakMemory() as mem:
         t = time.perf_counter()
         if {"moran", "gi"} & set(products) or quantize:
-            mosaic._global_moments(Z, ck, quantize)
+            mosaic._global_moments(Z, ck, quantize, dev)
         moments_s = time.perf_counter() - t
         if not moments_cached:
             # kept for the record of a run that resumes after a kill
