@@ -19,7 +19,9 @@ frozen (``torch.where(done, old, new)`` for x, r, p, rz and the count),
 so the result is the one a per-iteration test gives.  The host reads the
 flag back every ``check_every`` iterations only: each read waits for the
 device.  ``inpaint_nans_by_springs(return_info=True)`` reports the
-iterations and those host syncs.
+iterations and those host syncs; while a ``torch.profiler`` profile is
+open each springs fill is the span ``inpaint.springs`` with the same two
+counts as its ``attr``.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import warnings
 import numpy as np
 import torch
 
+from .. import profiling
 from ..core.device import float_tensor, to_device
 
 __all__ = ["inpaint_nans_by_springs", "inpaint_nans_by_fda",
@@ -328,40 +331,47 @@ def _kcycle(r, levels, l, omega=0.9, nsmooth=2, kdepth=2,
 
 def _springs_core(A, tol, maxiter, multiscale=True):
     """Spring-graph fill of a float tensor on its own device.  Returns
-    (filled, {"iterations", "host_syncs"})."""
+    (filled, {"iterations", "host_syncs"}).  While a profile is open the
+    fill is the span ``inpaint.springs``, with its device time and those
+    two counts as its ``attr``."""
     A = float_tensor(A)
-    nanmask = torch.isnan(A)
-    unknown = nanmask.to(A.dtype)
-    known_vals = torch.where(nanmask, 0.0, A)
-    known_mask = 1.0 - unknown
+    with profiling.span("inpaint.springs", device=A.device) as sp:
+        nanmask = torch.isnan(A)
+        unknown = nanmask.to(A.dtype)
+        known_vals = torch.where(nanmask, 0.0, A)
+        known_mask = 1.0 - unknown
 
-    deg = _degree(A.shape, dtype=A.dtype, device=A.device)
+        deg = _degree(A.shape, dtype=A.dtype, device=A.device)
 
-    def apply_fn(x):
-        # x lives on the unknown cells (zero elsewhere)
-        x = x * unknown
-        return (deg * x - _neighbor_sum(x)) * unknown
+        def apply_fn(x):
+            # x lives on the unknown cells (zero elsewhere)
+            x = x * unknown
+            return (deg * x - _neighbor_sum(x)) * unknown
 
-    b = _neighbor_sum(known_vals * known_mask) * unknown
+        b = _neighbor_sum(known_vals * known_mask) * unknown
 
-    # warm start: mean of known values (flat sheet)
-    mean = torch.nansum(known_vals) / torch.clamp_min(torch.sum(known_mask),
-                                                      1.0)
-    x0 = unknown * mean
+        # warm start: mean of known values (flat sheet)
+        mean = torch.nansum(known_vals) / torch.clamp_min(
+            torch.sum(known_mask), 1.0)
+        x0 = unknown * mean
 
-    H, W = A.shape
-    if multiscale and min(H, W) >= 64:
-        # multigrid-preconditioned flexible CG: iteration counts stay
-        # ~O(10) whatever the diameter of the NaN regions
-        levels = _build_levels(unknown, deg)
-        x, it, syncs = _cg(apply_fn, b, x0, lambda r: _kcycle(r, levels, 0),
-                           tol, maxiter, True, CHECK_EVERY_MULTIGRID)
-    else:
-        inv_deg = torch.where(deg > 0, 1.0 / deg, 0.0)
-        x, it, syncs = _cg(apply_fn, b, x0, lambda r: r * inv_deg * unknown,
-                           tol, maxiter, False, CHECK_EVERY_PLAIN)
-    return torch.where(nanmask, x, A), {"iterations": it,
-                                        "host_syncs": syncs}
+        H, W = A.shape
+        if multiscale and min(H, W) >= 64:
+            # multigrid-preconditioned flexible CG: iteration counts stay
+            # ~O(10) whatever the diameter of the NaN regions
+            levels = _build_levels(unknown, deg)
+            x, it, syncs = _cg(apply_fn, b, x0,
+                               lambda r: _kcycle(r, levels, 0), tol,
+                               maxiter, True, CHECK_EVERY_MULTIGRID)
+        else:
+            inv_deg = torch.where(deg > 0, 1.0 / deg, 0.0)
+            x, it, syncs = _cg(apply_fn, b, x0,
+                               lambda r: r * inv_deg * unknown, tol,
+                               maxiter, False, CHECK_EVERY_PLAIN)
+        info = {"iterations": it, "host_syncs": syncs}
+        if sp is not None:
+            sp.attr = dict(info)
+        return torch.where(nanmask, x, A), info
 
 
 def _warn_exhausted(it, maxiter, tol):

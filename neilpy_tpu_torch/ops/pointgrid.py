@@ -29,6 +29,9 @@ binning, then a pandas ``groupby(flat_index).min()/.max()`` scatter.
   binning path takes it too.  ``create_dem_from_las`` streams the file
   through the native LAS decoder chunk by chunk into the device grid,
   in the memory of one chunk.
+* While a ``torch.profiler`` profile is open, ``create_dem``'s host
+  binning is the span ``pointgrid.bin`` and its device reduction (the
+  copies in included) ``pointgrid.scatter``.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import profiling
 from ..core.affine import Affine
 from ..core.device import resolve_device, to_device
 
@@ -420,21 +424,25 @@ def create_dem(x, y, z, cellsize=1, bin_type="max", inpaint=False,
                                   method=method, chunks=chunks,
                                   device=device)
     else:
-        flat, valid, (ny, nx), t = bin_points(x, y, cellsize=cellsize,
-                                              edges=edges)
-        z = np.asarray(z, dtype=np.float64).astype(np.float32)
-        if ny * nx > _INT32_MAX:
-            # the flat index does not fit the int32 kernel: split into
-            # (row, col) components, each of which does
-            if method != "scatter":
-                raise ValueError("grids beyond 2**31 cells require "
-                                 "method='scatter' (the sort path keys "
-                                 "on a flat int32 index)")
-            I = _scatter_reduce_rc(flat // nx, flat % nx, z, valid, ny, nx,
-                                   bin_type, device=device)
-        else:
-            I = scatter_reduce(flat, z, valid, ny * nx, bin_type=bin_type,
-                               method=method, device=device).reshape(ny, nx)
+        with profiling.span("pointgrid.bin"):
+            flat, valid, (ny, nx), t = bin_points(x, y, cellsize=cellsize,
+                                                  edges=edges)
+            z = np.asarray(z, dtype=np.float64).astype(np.float32)
+        dev = resolve_device(device)
+        with profiling.span("pointgrid.scatter", device=dev):
+            if ny * nx > _INT32_MAX:
+                # the flat index does not fit the int32 kernel: split
+                # into (row, col) components, each of which does
+                if method != "scatter":
+                    raise ValueError("grids beyond 2**31 cells require "
+                                     "method='scatter' (the sort path "
+                                     "keys on a flat int32 index)")
+                I = _scatter_reduce_rc(flat // nx, flat % nx, z, valid, ny,
+                                       nx, bin_type, device=dev)
+            else:
+                I = scatter_reduce(flat, z, valid, ny * nx,
+                                   bin_type=bin_type, method=method,
+                                   device=dev).reshape(ny, nx)
     if inpaint:
         from .inpaint import inpaint_nans_by_springs
         I = inpaint_nans_by_springs(I)

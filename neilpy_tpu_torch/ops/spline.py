@@ -16,8 +16,10 @@ gathered numbers.  The solve is the Thomas sweep, O(n) sequential steps
 each vectorised across the other axis; the bands are constants, so the
 forward factors depend only on the position and are computed once on
 the host, in the working dtype, and the device runs the right-hand
-side's sweep (a few launches a step).  Out-of-domain queries are clamped
-to the boundary knots, as FITPACK's ``bispev`` does.
+side's sweep (a few launches a step); while a ``torch.profiler``
+profile is open each sweep is the span ``spline.thomas``, with its
+device time.  Out-of-domain queries are clamped to the boundary knots,
+as FITPACK's ``bispev`` does.
 
 Uniform spacing h=1 with data at ``offset + i`` (SMRF uses pixel
 centres 0.5, 1.5, ...).
@@ -30,6 +32,7 @@ import functools
 import numpy as np
 import torch
 
+from .. import profiling
 from ..core.device import float_tensor, to_device
 
 __all__ = ["spline_coefficients_2d", "spline_ev_2d", "interp_spline_2d"]
@@ -63,17 +66,18 @@ def _thomas(rhs):
     m = rhs.shape[0]
     a, denom, cp = _thomas_factors(
         m, np.float64 if rhs.dtype == torch.float64 else np.float32)
-    dp = torch.empty_like(rhs)
-    prev = torch.zeros_like(rhs[0])
-    for i in range(m):
-        row = rhs[i] - prev if a[i] else rhs[i]
-        torch.div(row, float(denom[i]), out=dp[i])
-        prev = dp[i]
-    x = torch.empty_like(rhs)
-    nxt = torch.zeros_like(rhs[0])
-    for i in range(m - 1, -1, -1):
-        torch.sub(dp[i], nxt, alpha=float(cp[i]), out=x[i])
-        nxt = x[i]
+    with profiling.span("spline.thomas", device=rhs.device):
+        dp = torch.empty_like(rhs)
+        prev = torch.zeros_like(rhs[0])
+        for i in range(m):
+            row = rhs[i] - prev if a[i] else rhs[i]
+            torch.div(row, float(denom[i]), out=dp[i])
+            prev = dp[i]
+        x = torch.empty_like(rhs)
+        nxt = torch.zeros_like(rhs[0])
+        for i in range(m - 1, -1, -1):
+            torch.sub(dp[i], nxt, alpha=float(cp[i]), out=x[i])
+            nxt = x[i]
     return x
 
 

@@ -16,6 +16,14 @@ jitted stages are plain functions here: ``_progressive_ladder``,
 same stages in float64 on the chosen device (the JAX package detours to
 its CPU backend, the TPU having no float64), fed by the float64 host
 scatter, with the CG solves at tol=1e-12.
+
+While a ``torch.profiler`` profile is open, one ``smrf`` call is the
+span ``smrf.call`` (``profiling.span``; ``attr`` the precision, the
+points and the grid) with the stages as its children: ``smrf.gridding``
+(``pointgrid.bin`` on the host, ``pointgrid.scatter`` on the device),
+one ``inpaint.springs`` per fill, ``smrf.low_outliers``, ``smrf.ladder``,
+``smrf.spline``, ``smrf.inverse_affine`` (host) and ``smrf.points``; the
+device stages carry their CUDA-event time.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ import shutil
 import numpy as np
 import torch
 
+from .. import profiling
 from ..core.device import resolve_device, to_device
 from ..core.shift import gradient2d
 from ..ops.inpaint import _springs_core
@@ -100,11 +109,13 @@ def _smrf_raster(Zmin_raw, windows, thresholds, low_threshold, cellsize,
     coefficients of the DTM and of its slope.  ``mark(stage, **info)`` is
     called after each stage."""
     is_empty_cell = torch.isnan(Zmin_raw)
+    dev = Zmin_raw.device
     Zmin, info = _springs_core(Zmin_raw, inpaint_tol, inpaint_maxiter)
     mark("springs_fill", **info)
 
-    neg = -Zmin
-    low_outliers = (neg - _opening(neg, 1)) > low_threshold
+    with profiling.span("smrf.low_outliers", device=dev):
+        neg = -Zmin
+        low_outliers = (neg - _opening(neg, 1)) > low_threshold
     mark("low_outlier_opening")
 
     if low_outlier_fill:
@@ -113,8 +124,9 @@ def _smrf_raster(Zmin_raw, windows, thresholds, low_threshold, cellsize,
                                    inpaint_tol, inpaint_maxiter)
         mark("springs_refill", **info)
 
-    object_cells, when_dropped = _progressive_ladder(
-        Zmin, windows, thresholds, return_extras)
+    with profiling.span("smrf.ladder", device=dev):
+        object_cells, when_dropped = _progressive_ladder(
+            Zmin, windows, thresholds, return_extras)
     mark("ladder")
 
     object_cells = is_empty_cell | low_outliers | object_cells
@@ -122,9 +134,10 @@ def _smrf_raster(Zmin_raw, windows, thresholds, low_threshold, cellsize,
                                inpaint_tol, inpaint_maxiter)
     mark("springs_fill_dtm", **info)
 
-    coeffs_Z = spline_coefficients_2d(Zpro)
-    gy, gx = gradient2d(Zpro, cellsize)
-    coeffs_S = spline_coefficients_2d(torch.sqrt(gy ** 2 + gx ** 2))
+    with profiling.span("smrf.spline", device=dev):
+        coeffs_Z = spline_coefficients_2d(Zpro)
+        gy, gx = gradient2d(Zpro, cellsize)
+        coeffs_S = spline_coefficients_2d(torch.sqrt(gy ** 2 + gx ** 2))
     mark("spline_coefficients")
     return Zpro, object_cells, when_dropped, coeffs_Z, coeffs_S
 
@@ -212,62 +225,72 @@ def _smrf_run(x, y, z, cellsize, windows, slope_threshold,
               low_outlier_fill, return_extras, precision, chunk_points,
               device, mark=_no_mark):
     """``smrf``'s body, with ``mark(stage, **info)`` called after each
-    stage (the host legs too: ``chip_smoke.py`` times them)."""
+    stage (the host legs too: ``chip_smoke.py`` times them), inside the
+    span ``smrf.call``."""
     if precision not in ("fast", "exact"):
         raise ValueError("precision must be 'fast' or 'exact'")
-    windows = _windows(windows)
-    dev = resolve_device(device)
-    x64 = np.asarray(x, dtype=np.float64)
-    y64 = np.asarray(y, dtype=np.float64)
-    z64 = np.asarray(z, dtype=np.float64)
+    with profiling.span("smrf.call") as call:
+        windows = _windows(windows)
+        dev = resolve_device(device)
+        x64 = np.asarray(x, dtype=np.float64)
+        y64 = np.asarray(y, dtype=np.float64)
+        z64 = np.asarray(z, dtype=np.float64)
 
-    if precision == "exact":
-        dt = torch.float64
-        Zmin, t = _min_surface_exact(x64, y64, z64, cellsize)
-        mark("host_scatter")
-        Zmin_raw = to_device(Zmin, dev)
-        mark("h2d_grid")
-        raster_kw = dict(inpaint_tol=1e-12, inpaint_maxiter=100_000)
-        cellsize_t = np.float64(cellsize)
-    else:
-        dt = torch.float32
-        Zmin_raw, t = create_dem(x64, y64, z64, cellsize=cellsize,
-                                 bin_type="min", device=dev)
-        mark("gridding")
-        raster_kw = {}
-        cellsize_t = cellsize
-    Zpro, object_cells, drop_raster, coeffs_Z, coeffs_S = _smrf_raster(
-        Zmin_raw, tuple(int(w) for w in windows),
-        _thresholds(windows, slope_threshold, cellsize_t, dt, dev),
-        torch.tensor(low_filter_slope * cellsize, dtype=dt, device=dev),
-        float(cellsize), bool(low_outlier_fill), bool(return_extras),
-        mark=mark, **raster_kw)
+        with profiling.span("smrf.gridding"):
+            if precision == "exact":
+                dt = torch.float64
+                Zmin, t = _min_surface_exact(x64, y64, z64, cellsize)
+                mark("host_scatter")
+                Zmin_raw = to_device(Zmin, dev)
+                mark("h2d_grid")
+                raster_kw = dict(inpaint_tol=1e-12,
+                                 inpaint_maxiter=100_000)
+                cellsize_t = np.float64(cellsize)
+            else:
+                dt = torch.float32
+                Zmin_raw, t = create_dem(x64, y64, z64, cellsize=cellsize,
+                                         bin_type="min", device=dev)
+                mark("gridding")
+                raster_kw = {}
+                cellsize_t = cellsize
+        Zpro, object_cells, drop_raster, coeffs_Z, coeffs_S = _smrf_raster(
+            Zmin_raw, tuple(int(w) for w in windows),
+            _thresholds(windows, slope_threshold, cellsize_t, dt, dev),
+            torch.tensor(low_filter_slope * cellsize, dtype=dt, device=dev),
+            float(cellsize), bool(low_outlier_fill), bool(return_extras),
+            mark=mark, **raster_kw)
 
-    # host f64 inverse affine for the point coordinates (precision)
-    c, r = (~t) * (x64, y64)
-    mark("host_inverse_affine")
-    eth = torch.tensor(elevation_threshold, dtype=dt, device=dev)
-    esc = torch.tensor(elevation_scaler, dtype=dt, device=dev)
-    if r.size > int(chunk_points):
-        is_object_point, elevation_values = _smrf_points_streamed(
-            coeffs_Z, coeffs_S, r, c, z64, eth, esc, int(chunk_points),
-            need_elev=bool(return_extras))
-    else:
-        is_object_point, elevation_values = _smrf_points(
-            coeffs_Z, coeffs_S, to_device(r, dev, dt), to_device(c, dev, dt),
-            to_device(z64, dev, dt), eth, esc)
-    mark("points")
+        # host f64 inverse affine for the point coordinates (precision)
+        with profiling.span("smrf.inverse_affine"):
+            c, r = (~t) * (x64, y64)
+        mark("host_inverse_affine")
+        with profiling.span("smrf.points", device=dev):
+            eth = torch.tensor(elevation_threshold, dtype=dt, device=dev)
+            esc = torch.tensor(elevation_scaler, dtype=dt, device=dev)
+            if r.size > int(chunk_points):
+                is_object_point, elevation_values = _smrf_points_streamed(
+                    coeffs_Z, coeffs_S, r, c, z64, eth, esc,
+                    int(chunk_points), need_elev=bool(return_extras))
+            else:
+                is_object_point, elevation_values = _smrf_points(
+                    coeffs_Z, coeffs_S, to_device(r, dev, dt),
+                    to_device(c, dev, dt), to_device(z64, dev, dt), eth, esc)
+        mark("points")
+        if call is not None:
+            call.attr = {"precision": precision, "points": int(r.size),
+                         "grid": list(Zpro.shape)}
 
-    if return_extras:
-        rr = np.clip(np.round(r).astype(int), 0, Zpro.shape[0] - 1)
-        cc = np.clip(np.round(c).astype(int), 0, Zpro.shape[1] - 1)
-        extras = {
-            "above_ground_height": to_device(z64, dev, dt) - elevation_values,
-            "drop_raster": drop_raster,
-            "when_dropped": drop_raster.cpu().numpy()[rr, cc],
-        }
-        return Zpro, t, object_cells, is_object_point, extras
-    return Zpro, t, object_cells, is_object_point
+        if return_extras:
+            rr = np.clip(np.round(r).astype(int), 0, Zpro.shape[0] - 1)
+            cc = np.clip(np.round(c).astype(int), 0, Zpro.shape[1] - 1)
+            extras = {
+                "above_ground_height": (to_device(z64, dev, dt)
+                                        - elevation_values),
+                "drop_raster": drop_raster,
+                "when_dropped": drop_raster.cpu().numpy()[rr, cc],
+            }
+            return Zpro, t, object_cells, is_object_point, extras
+        return Zpro, t, object_cells, is_object_point
 
 
 def smrf_las(filename, out_filename, cellsize=1, windows=5,
