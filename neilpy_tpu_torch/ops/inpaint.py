@@ -21,11 +21,21 @@ flag back every ``check_every`` iterations only: each read waits for the
 device.  ``inpaint_nans_by_springs(return_info=True)`` reports the
 iterations and those host syncs; while a ``torch.profiler`` profile is
 open each springs fill is the span ``inpaint.springs`` with the same two
-counts as its ``attr``.
+counts, how the fill ran (``graph``) and its graph replays as its
+``attr``.
+
+A multigrid iteration is thousands of small kernels, which on a CUDA
+device the host issues more slowly than the card runs them.  There the
+springs fill runs its CG as two CUDA graphs per grid shape, captured at
+the shape's first fill and replayed by every later one (``_GRAPHS``):
+the same kernels in the same order, so the same bits as the eager loop,
+with one graph launch and one flag read an iteration.
 """
 
 from __future__ import annotations
 
+import collections
+import threading
 import warnings
 
 import numpy as np
@@ -94,6 +104,59 @@ class _Tensor:
         return torch.where(c, a, b)
 
 
+def _atol2(b, tol, space=_Tensor):
+    """The CG's squared stop tolerance for the right-hand side ``b``."""
+    bnorm = torch.sqrt(space.dot(b, b))
+    return (tol * torch.clamp_min(bnorm, 1e-30)) ** 2
+
+
+def _cg_start(apply_fn, b, x0, precond, atol2, space=_Tensor):
+    """The CG state before the first iteration: (x, r, p, rz, it, done)."""
+    V = space
+    r = V.sub(b, apply_fn(x0))
+    z = precond(r)
+    rz = V.dot(r, z)
+    it = torch.zeros((), dtype=torch.int64, device=atol2.device)
+    done = ~(V.dot(r, r) > atol2)  # a NaN residual stops, as in JAX
+    return x0, r, z, rz, it, done
+
+
+def _cg_step(state, apply_fn, precond, atol2, flexible, space=_Tensor):
+    """One CG iteration: the state (x, r, p, rz, it, done) after it, the
+    one before in value once ``done`` holds.  Every iteration of every CG
+    here runs this body: eagerly in ``_cg``, or captured in a CUDA graph
+    (``_SpringsGraphs``)."""
+    V = space
+    x, r, p, rz, it, done = state
+    Ap = apply_fn(p)
+    alpha = V.scalar(rz / V.dot(p, Ap))
+    x_new = V.axpy(x, alpha, p)
+    r_new = V.axpy(r, alpha, Ap, -1)
+    z = precond(r_new)
+    rz_new = V.dot(r_new, z)
+    if flexible:
+        # Polak-Ribiere: robust to a nonlinear preconditioner
+        beta = (rz_new - V.dot(r, z)) / rz
+    else:
+        beta = rz_new / rz
+    p_new = V.axpy(z, V.scalar(beta), p)
+    d = V.scalar(done)
+    x = V.where(d, x, x_new)
+    r = V.where(d, r, r_new)
+    p = V.where(d, p, p_new)
+    rz = torch.where(done, rz, rz_new)
+    it = it + (~done).to(it.dtype)
+    done = done | ~(V.dot(r, r) > atol2)
+    return x, r, p, rz, it, done
+
+
+def _flag(state):
+    """The stop flag and the iteration count of a CG state, stacked: what
+    the host reads."""
+    it, done = state[4], state[5]
+    return torch.stack([done.to(it.dtype), it])
+
+
 def _cg(apply_fn, b, x0, precond, tol, maxiter, flexible, check_every,
         space=_Tensor):
     """CG with the stop test on the device (see the module docstring), on
@@ -102,44 +165,32 @@ def _cg(apply_fn, b, x0, precond, tol, maxiter, flexible, check_every,
     V = space
     if precond is None:
         precond = lambda r: r
-    bnorm = torch.sqrt(V.dot(b, b))
-    atol2 = (tol * torch.clamp_min(bnorm, 1e-30)) ** 2
+    atol2 = _atol2(b, tol, V)
+    state = _cg_start(apply_fn, b, x0, precond, atol2, V)
 
-    x = x0
-    r = V.sub(b, apply_fn(x0))
-    z = precond(r)
-    p = z
-    rz = V.dot(r, z)
-    it = torch.zeros((), dtype=torch.int64, device=bnorm.device)
-    done = ~(V.dot(r, r) > atol2)  # a NaN residual stops, as in JAX
-    syncs = iterations = 0
+    def step():
+        nonlocal state
+        state = _cg_step(state, apply_fn, precond, atol2, flexible, V)
+
+    iterations, syncs, _ = _iterate(step, lambda: _flag(state), maxiter,
+                                    check_every)
+    return state[0], iterations, syncs
+
+
+def _iterate(step, flag, maxiter, check_every):
+    """The CG's host schedule: ``step()`` up to ``maxiter`` times and,
+    every ``check_every`` iterations and after the last, one read of
+    ``flag()`` (the stop flag and the count): the only host sync.
+    Returns (iterations, host syncs, steps run)."""
+    syncs = iterations = n = 0
     for n in range(1, int(maxiter) + 1):
-        Ap = apply_fn(p)
-        alpha = V.scalar(rz / V.dot(p, Ap))
-        x_new = V.axpy(x, alpha, p)
-        r_new = V.axpy(r, alpha, Ap, -1)
-        z = precond(r_new)
-        rz_new = V.dot(r_new, z)
-        if flexible:
-            # Polak-Ribiere: robust to a nonlinear preconditioner
-            beta = (rz_new - V.dot(r, z)) / rz
-        else:
-            beta = rz_new / rz
-        p_new = V.axpy(z, V.scalar(beta), p)
-        d = V.scalar(done)
-        x = V.where(d, x, x_new)
-        r = V.where(d, r, r_new)
-        p = V.where(d, p, p_new)
-        rz = torch.where(done, rz, rz_new)
-        it = it + (~done).to(it.dtype)
-        done = done | ~(V.dot(r, r) > atol2)
+        step()
         if n % check_every == 0 or n == maxiter:
-            # one read of the flag and the count: the only host sync
             syncs += 1
-            stop, iterations = torch.stack([done.to(it.dtype), it]).tolist()
+            stop, iterations = flag().tolist()
             if stop:
                 break
-    return x, iterations, syncs
+    return iterations, syncs, n
 
 
 def cg_solve(apply_fn, b, x0, precond=None, tol=1e-7, maxiter=2000,
@@ -329,11 +380,134 @@ def _kcycle(r, levels, l, omega=0.9, nsmooth=2, kdepth=2,
     return smooth(x + _prolong2(xc, H, W) * u)
 
 
+class _SpringsGraphs:
+    """The multigrid flexible CG of one grid shape on fixed tensors, as two
+    CUDA graphs that share one memory pool: P, ``_cg_start`` with the first
+    K-cycle, and I, one ``_cg_step`` with its K-cycle and the stop flag.
+
+    ``load`` copies a fill's mask, Galerkin levels, right-hand side, warm
+    start and tolerance into the fixed inputs; ``start`` and ``step`` run
+    the shared bodies on them and copy the results into the fixed state
+    (x, r, p, rz, it, done) and ``flag``.  ``capture`` runs both once
+    eagerly on a side stream (the warm-up that ``torch.cuda.graph`` asks
+    for) and then records them; a replay runs the same kernels on the
+    current stream.  The holder of ``lock`` owns the fixed tensors."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.inputs = self.state = self.flag = self.graphs = None
+        self.released = None   # CUDA event: the last holder's work on them
+
+    def load(self, unknown, deg, levels, b, x0, atol2):
+        new = [unknown, deg, b, x0, atol2, *(t for lv in levels for t in lv)]
+        if self.inputs is None:
+            self.inputs = [t.clone() for t in new]
+            z = torch.zeros((), dtype=torch.int64, device=b.device)
+            self.state = (torch.empty_like(b), torch.empty_like(b),
+                          torch.empty_like(b), torch.empty_like(atol2), z,
+                          z.bool())
+            self.flag = torch.zeros(2, dtype=torch.int64, device=b.device)
+        else:
+            for dst, src in zip(self.inputs, new):
+                dst.copy_(src)
+
+    def _apply(self, x):
+        unknown, deg = self.inputs[:2]
+        x = x * unknown
+        return (deg * x - _neighbor_sum(x)) * unknown
+
+    def _precond(self, r):
+        flat = self.inputs[5:]
+        return _kcycle(r, [flat[i:i + 4] for i in range(0, len(flat), 4)],
+                       0)
+
+    def _store(self, state):
+        for dst, src in zip(self.state, state):
+            dst.copy_(src)
+        self.flag.copy_(_flag(state))
+
+    def start(self):
+        b, x0, atol2 = self.inputs[2:5]
+        self._store(_cg_start(self._apply, b, x0, self._precond, atol2))
+
+    def step(self):
+        self._store(_cg_step(self.state, self._apply, self._precond,
+                             self.inputs[4], True))
+
+    def capture(self):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            self.start()
+            self.step()
+        torch.cuda.current_stream().wait_stream(side)
+        start, step = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+        with torch.cuda.graph(start, capture_error_mode="thread_local"):
+            self.start()
+        with torch.cuda.graph(step, pool=start.pool(),
+                              capture_error_mode="thread_local"):
+            self.step()
+        self.graphs = (start, step)
+
+
+class _GraphCache:
+    """The ``_SpringsGraphs`` of the last ``size`` (H, W, dtype, device)
+    keys filled, least recently used evicted.  An entry holds about ten
+    grids of the fill's dtype and the pool of one iteration's temporaries
+    (≈ 0.4 GB at 2001² float32).  Captures run one at a time."""
+
+    def __init__(self, size=4):
+        self.size = size
+        self._entries = collections.OrderedDict()
+        self._lock = threading.Lock()
+        self._capture = threading.Lock()
+
+    def fill(self, A, nanmask, unknown, deg, levels, b, x0, atol2, maxiter):
+        """The multigrid fill of ``A`` (on a CUDA device) through the
+        graphs of its key, capturing them at the key's first fill.
+        Returns (filled, iterations, host syncs, "captured" or
+        "replayed", graph replays)."""
+        key = (tuple(A.shape), A.dtype, A.device)
+        with self._lock:
+            g = self._entries.pop(key, None) or _SpringsGraphs()
+            self._entries[key] = g
+            while len(self._entries) > self.size:
+                self._entries.popitem(last=False)
+        with g.lock, torch.cuda.device(A.device):
+            stream = torch.cuda.current_stream()
+            if g.released is not None:
+                stream.wait_event(g.released)
+            g.load(unknown, deg, levels, b, x0, atol2)
+            how = "replayed"
+            if g.graphs is None:
+                with self._capture:
+                    g.capture()
+                how = "captured"
+            start, step = g.graphs
+            start.replay()
+            it, syncs, steps = _iterate(step.replay, lambda: g.flag,
+                                        maxiter, CHECK_EVERY_MULTIGRID)
+            out = torch.where(nanmask, g.state[0], A)
+            g.released = stream.record_event()
+        return out, it, syncs, how, 1 + steps
+
+
+_GRAPHS = _GraphCache()
+
+
+def _graphs_on(device):
+    """Whether a multigrid fill on ``device`` runs as CUDA graphs: on a
+    CUDA device."""
+    return device.type == "cuda"
+
+
 def _springs_core(A, tol, maxiter, multiscale=True):
     """Spring-graph fill of a float tensor on its own device.  Returns
-    (filled, {"iterations", "host_syncs"}).  While a profile is open the
-    fill is the span ``inpaint.springs``, with its device time and those
-    two counts as its ``attr``."""
+    (filled, {"iterations", "host_syncs", "graph", "replays"}): ``graph``
+    is "captured" or "replayed" for a multigrid fill on a CUDA device
+    (``_GRAPHS``), else "eager"; ``replays`` counts the graph replays.
+    While a profile is open the fill is the span ``inpaint.springs``, with
+    its device time and that dict as its ``attr``."""
     A = float_tensor(A)
     with profiling.span("inpaint.springs", device=A.device) as sp:
         nanmask = torch.isnan(A)
@@ -356,22 +530,33 @@ def _springs_core(A, tol, maxiter, multiscale=True):
         x0 = unknown * mean
 
         H, W = A.shape
+        graph, replays = "eager", 0
         if multiscale and min(H, W) >= 64:
             # multigrid-preconditioned flexible CG: iteration counts stay
             # ~O(10) whatever the diameter of the NaN regions
             levels = _build_levels(unknown, deg)
-            x, it, syncs = _cg(apply_fn, b, x0,
-                               lambda r: _kcycle(r, levels, 0), tol,
-                               maxiter, True, CHECK_EVERY_MULTIGRID)
+            if _graphs_on(A.device):
+                # each iteration thousands of small kernels: replayed as
+                # CUDA graphs, the host launches one graph an iteration
+                out, it, syncs, graph, replays = _GRAPHS.fill(
+                    A, nanmask, unknown, deg, levels, b, x0,
+                    _atol2(b, tol), maxiter)
+            else:
+                x, it, syncs = _cg(apply_fn, b, x0,
+                                   lambda r: _kcycle(r, levels, 0), tol,
+                                   maxiter, True, CHECK_EVERY_MULTIGRID)
+                out = torch.where(nanmask, x, A)
         else:
             inv_deg = torch.where(deg > 0, 1.0 / deg, 0.0)
             x, it, syncs = _cg(apply_fn, b, x0,
                                lambda r: r * inv_deg * unknown, tol,
                                maxiter, False, CHECK_EVERY_PLAIN)
-        info = {"iterations": it, "host_syncs": syncs}
+            out = torch.where(nanmask, x, A)
+        info = {"iterations": it, "host_syncs": syncs, "graph": graph,
+                "replays": replays}
         if sp is not None:
             sp.attr = dict(info)
-        return torch.where(nanmask, x, A), info
+        return out, info
 
 
 def _warn_exhausted(it, maxiter, tol):

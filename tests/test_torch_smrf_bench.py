@@ -12,7 +12,7 @@ sizes, and the spans one ``smrf`` call records.
   its limit, the span metrics of a traced run; no JAX loaded;
 - the span tree of a call under a profile (names, parents, each fill's
   ``iterations`` equal to what the fill reports) and none without one;
-- the readers of the six new per-layer metrics on hand-built records;
+- the readers of its per-layer metrics on hand-built records;
 - ``BENCHMARK.json``: the new entries, and the two appended cell names
   the only change to an entry that was there.
 
@@ -305,7 +305,8 @@ def test_a_fill_span_carries_what_return_info_reports():
     (s,) = profiling.spans()
     assert s.name == "inpaint.springs" and s.parent is None
     assert s.attr == {"iterations": info["iterations"],
-                      "host_syncs": info["host_syncs"]}
+                      "host_syncs": info["host_syncs"], "graph": "eager",
+                      "replays": 0}
 
 
 def test_without_a_profile_no_span_is_recorded():
@@ -330,33 +331,40 @@ def fake(name, t0, t1, sid, parent=None, root=None, device_ms=None,
 
 
 # two calls of 1 s: fills of 300 + 500 and 350 + 450 device ms (4, 7, 5
-# and 6 iterations), ladders of 60 and 70 ms, the host's binning 20 and
-# 30 ms and inverse affine 10 ms each; a fill outside any call and a
-# call outside the window
+# and 6 iterations; the first captured its graphs, three replayed them),
+# ladders of 60 and 70 ms, the host's binning 20 and 30 ms and inverse
+# affine 10 ms each; a fill outside any call and a call outside the
+# window
 SMRF = [fake("smrf.call", 0, 1000 * MS, 1),
         fake("smrf.gridding", 0, 40 * MS, 2, 1, 1),
         fake("pointgrid.bin", 0, 20 * MS, 3, 2, 1),
         fake("inpaint.springs", 40 * MS, 300 * MS, 4, 1, 1, 300.0,
-             {"iterations": 4, "host_syncs": 4}),
+             {"iterations": 4, "host_syncs": 4, "graph": "captured",
+              "replays": 5}),
         fake("smrf.ladder", 300 * MS, 400 * MS, 5, 1, 1, 60.0),
         fake("inpaint.springs", 400 * MS, 900 * MS, 6, 1, 1, 500.0,
-             {"iterations": 7, "host_syncs": 7}),
+             {"iterations": 7, "host_syncs": 7, "graph": "replayed",
+              "replays": 8}),
         fake("smrf.inverse_affine", 900 * MS, 910 * MS, 7, 1, 1),
         fake("smrf.call", 1000 * MS, 2000 * MS, 8),
         fake("pointgrid.bin", 1000 * MS, 1030 * MS, 9, 8, 8),
         fake("inpaint.springs", 1100 * MS, 1400 * MS, 10, 8, 8, 350.0,
-             {"iterations": 5, "host_syncs": 5}),
+             {"iterations": 5, "host_syncs": 5, "graph": "replayed",
+              "replays": 6}),
         fake("smrf.ladder", 1400 * MS, 1500 * MS, 11, 8, 8, 70.0),
         fake("inpaint.springs", 1500 * MS, 1900 * MS, 12, 8, 8, 450.0,
-             {"iterations": 6, "host_syncs": 6}),
+             {"iterations": 6, "host_syncs": 6, "graph": "replayed",
+              "replays": 7}),
         fake("smrf.inverse_affine", 1900 * MS, 1910 * MS, 13, 8, 8),
         fake("inpaint.springs", 1950 * MS, 1960 * MS, 14, None, None, 9.0,
-             {"iterations": 99, "host_syncs": 99}),
+             {"iterations": 99, "host_syncs": 99, "graph": "eager",
+              "replays": 0}),
         fake("smrf.call", 3000 * MS, 4000 * MS, 15)]
 READERS = {"smrf.fill_ms_per_call": 800.0,
            "inpaint.cg_iters_per_fill": 5.5,
            "smrf.ladder_ms_per_call": 65.0,
-           "smrf.host_pct": 3.5}
+           "smrf.host_pct": 3.5,
+           "inpaint.graph_replay_pct": 75.0}
 
 
 def reader(name):
@@ -377,6 +385,27 @@ def test_span_readers(monkeypatch, name):
     assert read(run) is None
     monkeypatch.delattr(profiling, "spans")
     assert read(run) is None
+
+
+def test_graph_replay_share_reads_none_for_fills_without_graph_attr(
+        monkeypatch):
+    """The parent commit's fills carry only ``iterations`` and
+    ``host_syncs``: ``inpaint.graph_replay_pct`` then reads None, and
+    every fill replayed reads 100."""
+    read = reader("inpaint.graph_replay_pct").read
+    trace = types.SimpleNamespace(window=(0, 2000 * MS), busy=[])
+    run = harness.Run(jobs=[], trace=trace)
+    parent = [types.SimpleNamespace(**{**vars(s), "attr": {
+        k: v for k, v in s.attr.items() if k in ("iterations",
+                                                 "host_syncs")}})
+              if isinstance(s.attr, dict) else s for s in SMRF]
+    monkeypatch.setattr(profiling, "spans", lambda: parent)
+    assert read(run) is None
+    replayed = [types.SimpleNamespace(**{**vars(s), "attr": {
+        **s.attr, "graph": "replayed"}}) if isinstance(s.attr, dict) else s
+                for s in SMRF]
+    monkeypatch.setattr(profiling, "spans", lambda: replayed)
+    assert read(run) == 100.0
 
 
 def test_launches_and_idle_readers():
@@ -410,6 +439,8 @@ BEFORE = {"configs": (2, "4e291c418ab444b6"),
 NEW_METRICS = ["device.idle_pct.smrf", "smrf.launches_per_job",
                "smrf.fill_ms_per_call", "inpaint.cg_iters_per_fill",
                "smrf.ladder_ms_per_call", "smrf.host_pct"]
+# appended after the cell's own: the springs fill's CUDA graph replays
+LATER_METRICS = ["inpaint.graph_replay_pct"]
 
 
 def _digest(x):
@@ -437,7 +468,7 @@ def test_the_new_entries():
     assert (cell["name"], cell["config"], cell["traffic"], cell["chips"]) \
         == (CELL, "smrf_isprs", "tile5m", 1)
     new = MAN["per_layer"][14:]
-    assert [m["name"] for m in new] == NEW_METRICS
+    assert [m["name"] for m in new] == NEW_METRICS + LATER_METRICS
     for m in new:
         assert m["workloads"] == [CELL]
         assert m["moves"] == "raster_mpix_s.host"
@@ -445,7 +476,8 @@ def test_the_new_entries():
     spec = harness.CellSpec(CELL)
     assert {m["name"] for m in spec.metrics("end_to_end")} == {
         "raster_mpix_s.host", "job_p95_ms.host", "setup_s"}
-    assert [m["name"] for m in spec.metrics("per_layer")] == NEW_METRICS
+    assert [m["name"] for m in spec.metrics("per_layer")] == \
+        NEW_METRICS + LATER_METRICS
 
 
 def test_the_configuration_is_the_published_set_and_its_traffic():
