@@ -20,11 +20,12 @@ for the counts and the reductions) runs its all-safe interior as tiles of
 32 x 64 pixels with the Rmax halo in shared memory
 (``csrc/ladder_tile.cuh``, filled by TMA or by cp.async; on a shard block
 only where the window also lies inside the global raster; K2's and
-K5/reduced's fold as the tile's epilogue); ``routes_vs_plain`` holds both
-routes of K1 and K2 against each other (equal; K2's bit for bit) and
-every kernel with the tile path on and off against the plain version,
-on NaN holes (also inside tiles, on both load paths), unaligned shapes
-and lookups 1 to 100, ``tile_reaches_vs_plain`` holds the seven tiled
+K5/reduced's fold as the tile's epilogue; a launch where no tile fits
+runs the per-thread bodies on every block); ``routes_vs_plain`` holds
+both routes of K1 and K2 against each other (equal; K2's bit for bit)
+and every kernel against the plain version, on NaN holes (also inside
+tiles, on both load paths), unaligned shapes and lookups 1 to 100 (no
+tile fits at exact lookup 100), ``tile_reaches_vs_plain`` holds the seven tiled
 launches (K1, K5/counts, K2 and K5/reduced in each mode, K3, K3's origin
 entry, K4) against the plain version on every ladder that takes the tile
 path (every halo bucket, on both load paths), the tiled kernels always
@@ -64,26 +65,23 @@ with ``imread``, at lookup 50:
   visible cards; 1 x 1 on one card) and on a 2 x 2 mesh naming the card
   four times (exact and fast; K4 x 4 each), ``sharded_openness`` and
   ``sharded_skyview`` on that mesh (K3's origin entry x 4 each), each
-  against the single-device function, then K4 and K3's origin entry, tile
-  path on and off, against their plain versions on every haloed block of
-  that mesh, then small multi-hop and non-divisible cases.
+  against the single-device function, then K4 and K3's origin entry
+  against their plain versions on every haloed block of that mesh, then
+  small multi-hop and non-divisible cases.
 
 Each path runs with every launch count set to 0 just before it and read
 just after, and every output is compared with its plain version (the
 sharded outputs with the single-device ones) at full size.  Then
 ``full_size_vs_plain`` holds the raw outputs of K1 and K5 (counts, both
 ladders), K2 and K5 (each reduction) and K3 (the planes) against their
-plain versions at 8192^2, lookup 50, tile path on and off.  Last, it
-times each kernel on each route (all blocks masked, dynamic, static;
-each also per-thread, the tile path off; K3's origin entry on a 2 x 2
-mesh block, K4 on a 2 x 2 block on both ladders and on
-``make_mesh()``'s 1 x 1 block) and its plain version with
-CUDA events, checks that both routes beat the all-masked launch (so the
-kernels really take the maskless ladder) and that the tile path beats the
-per-thread one (so it really runs), times K5/counts at lookup 12 (the
-enhance pass's second launch) and the
-``geomorphons`` call with the tile path on and off, and times the sharded
-call against the single-device one; the kernel table gives each kernel's
+plain versions at 8192^2, lookup 50, and K1 and K5/counts at exact
+lookup 100, where no tile fits and the per-thread bodies run every
+block.  Last, it times each kernel on each route (dynamic, static; K3's
+origin entry on a 2 x 2 mesh block, K4 on a 2 x 2 block on both ladders
+and on ``make_mesh()``'s 1 x 1 block) and its plain version with CUDA
+events, times K5/counts at lookup 12 (the enhance pass's second launch),
+and times the sharded call against the single-device one; the kernel
+table gives each kernel's
 bound (operations at the f32 instruction rate or bytes at the HBM rate,
 whichever is larger; for K2 and K5/reduced the operations of the fold
 too, counted from the TPU kernel's body).
@@ -196,6 +194,7 @@ import tempfile
 import time
 import zlib
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -204,6 +203,7 @@ HERE = Path(__file__).resolve().parent
 MAIN_SHAPE = (8192, 8192)      # bench.py SCALE_SHAPE: ~1e8 px, Poland EU-DEM scale
 MAIN_LOOKUP = 50
 ENHANCE_LOOKUP = 12            # geomorphons(enhance=True)'s second pass
+NO_TILE_LOOKUP = 100           # exact: the window exceeds the halo buckets
 TIMED_RUNS = 5
 # the H100 SXM's published rates (NVIDIA's data sheet): float32 outside
 # the tensor cores, 67 TFLOP/s counting an FMA as two operations, so
@@ -227,12 +227,6 @@ ATAN_OPS = 28
 ATAN_FMAS = 4
 FOLD_OPS = {("openness", True): 2 * (ATAN_OPS - ATAN_FMAS) + 8,
             ("svf", True): 5, ("ternary", True): 25, ("ternary", False): 11}
-# both routes must beat the all-masked launch by this factor at 8192^2
-# (they take the maskless ladder on ~99% of the pairs)
-ROUTE_GAIN = 0.8
-# the tile path of every tiled kernel must beat its per-thread body by
-# this factor at 8192^2 (it takes ~97% of the pixels there)
-TILE_GAIN = 0.9
 OPENNESS_TOL = 5e-5            # degrees: atanf vs torch.atan, per direction
 SVF_TOL = 1e-6
 ORACLE_OPENNESS_TOL = 2e-4     # degrees, as tests/test_visibility.py
@@ -587,16 +581,6 @@ def tile_case(cuda_scan, nan_grid, Zd, lookup, fast, plan=False,
             bool((nan_grid & t.pixels(*nan_grid.shape)).any()))
 
 
-def tiled_runs(cuda_scan, tiled=True):
-    """Tile path on, then off (``per_thread``): the contexts a comparison
-    runs each kernel under.  Where no tile runs (``tiled`` false) the two
-    would be the same launch, so only the first."""
-    runs = [(True, contextlib.nullcontext)]
-    if tiled:
-        runs.append((False, lambda: per_thread(cuda_scan)))
-    return runs
-
-
 def planes_equal(got, want, what):
     """K3's planes against the plain version's: equal by value (the
     maskless body may keep +0 for -0), no NaN (an unwritten value of
@@ -611,16 +595,14 @@ def routes_vs_plain(cuda_scan, dev):
     static plan), exact and fast ladders, against each other and the
     plain version; every kernel (K1, K5/counts, K2 and K5/reduced in each
     mode variant, K3, K3's origin entry and K4, dynamic route only for the
-    last three) with the tile path on and, where a tile runs (elsewhere
-    the two are one launch), off against the plain version, into outputs
-    no launch leaves unwritten unseen; lookups 1 to 100, so R
-    also exceeds the smaller rasters.  Between routes and between tile
-    path on and off every output is equal (counts exactly; K2's and
-    K5/reduced's bit for bit, openness sums too); against the plain
-    version counts, codes and extrema exactly (extrema by value), openness
-    and skyview within the stated tolerances.  Both tile load paths must
-    run in each tiled kernel, each also on a raster with a NaN inside its
-    tiles."""
+    last three) against the plain version, into outputs no launch leaves
+    unwritten unseen; lookups 1 to 100, so R also exceeds the smaller
+    rasters and, at exact lookup 100, no tile fits.  Between routes every
+    output is equal (counts exactly; K2's and K5/reduced's bit for bit,
+    openness sums too); against the plain version counts, codes and
+    extrema exactly (extrema by value), openness and skyview within the
+    stated tolerances.  Both tile load paths must run in each tiled
+    kernel, each also on a raster with a NaN inside its tiles."""
     worst = {"K1": 0, "K2": 0.0, "K3": 0.0, "K4": 0, "K5/counts": 0,
              "K5/reduced": 0.0}
     n = {k: 0 for k in worst}
@@ -648,20 +630,15 @@ def routes_vs_plain(cuda_scan, dev):
                 for kid, fn in (("K1", cuda_scan.openness_counts_cuda),
                                 ("K5/counts",
                                  cuda_scan.openness_counts_plan_cuda)):
-                    case = tile_case(cuda_scan, nan, Zd, lk, fast,
-                                     kid == "K5/counts")
-                    for tiled, ctx in tiled_runs(cuda_scan, case):
-                        with ctx():
-                            k = fn(Zd, threshold_angle=1.0,
-                                   out=unwritten(Zd), **kw)
-                        torch.cuda.synchronize()
-                        err = max(int((a.int() - b.int()).abs().max())
-                                  for a, b in zip(k, p))
-                        check(err == 0, f"{kid} counts (tile path "
-                                        f"{'on' if tiled else 'off'}) != "
-                                        f"plain on {what} (max |diff| {err})")
-                        n[kid] += 1
-                    count(kid, case)
+                    k = fn(Zd, threshold_angle=1.0, out=unwritten(Zd), **kw)
+                    torch.cuda.synchronize()
+                    err = max(int((a.int() - b.int()).abs().max())
+                              for a, b in zip(k, p))
+                    check(err == 0, f"{kid} counts != plain on {what} "
+                                    f"(max |diff| {err})")
+                    n[kid] += 1
+                    count(kid, tile_case(cuda_scan, nan, Zd, lk, fast,
+                                         kid == "K5/counts"))
                 for variant, (mode, extra) in REDUCED_VARIANTS.items():
                     mkw = dict(kw, **extra)
                     p = cuda_scan.openness_reduced_torch(Zd, mode, **mkw)
@@ -669,34 +646,25 @@ def routes_vs_plain(cuda_scan, dev):
                     for kid, fn in (("K2", cuda_scan.openness_reduced_cuda),
                                     ("K5/reduced",
                                      cuda_scan.openness_reduced_plan_cuda)):
-                        case = tile_case(cuda_scan, nan, Zd, lk, fast,
-                                         kid == "K5/reduced")
-                        for tiled, ctx in tiled_runs(cuda_scan, case):
-                            with ctx():
-                                k = fn(Zd, mode, out=unwritten_reduced(
-                                    Zd, mode), **mkw)
-                            torch.cuda.synchronize()
-                            label = (f"{kid} (tile path "
-                                     f"{'on' if tiled else 'off'})")
-                            worst[kid] = max(worst[kid], reduced_err(
-                                cuda_scan, mode, k, p,
-                                f"{label} {variant} on {what}"))
-                            outs[label] = k
-                            n[kid] += 1
-                        count(kid, case)
+                        k = fn(Zd, mode, out=unwritten_reduced(Zd, mode),
+                               **mkw)
+                        torch.cuda.synchronize()
+                        worst[kid] = max(worst[kid], reduced_err(
+                            cuda_scan, mode, k, p, f"{kid} {variant} on "
+                                                   f"{what}"))
+                        outs[kid] = k
+                        n[kid] += 1
+                        count(kid, tile_case(cuda_scan, nan, Zd, lk, fast,
+                                             kid == "K5/reduced"))
                     reduced_identical(outs, f"{variant} on {what}")
                 p = cuda_scan.directional_extrema_torch(Zd, **kw)
-                case = tile_case(cuda_scan, nan, Zd, lk, fast)
-                for tiled, ctx in tiled_runs(cuda_scan, case):
-                    with ctx():
-                        k = cuda_scan.directional_extrema_cuda(
-                            Zd, out=unwritten_planes(Zd), **kw)
-                    torch.cuda.synchronize()
-                    state = "on" if tiled else "off"
-                    worst["K3"] = max(worst["K3"], planes_equal(
-                        k, p, f"K3 extrema (tile path {state}) on {what}"))
-                    n["K3"] += 1
-                count("K3", case)
+                k = cuda_scan.directional_extrema_cuda(
+                    Zd, out=unwritten_planes(Zd), **kw)
+                torch.cuda.synchronize()
+                worst["K3"] = max(worst["K3"], planes_equal(
+                    k, p, f"K3 extrema on {what}"))
+                n["K3"] += 1
+                count("K3", tile_case(cuda_scan, nan, Zd, lk, fast))
         # K4 and K3's origin entry on blocks of this raster padded with NaN:
         # a corner block and, where the raster allows, an interior one
         H, W = Z.shape
@@ -712,40 +680,31 @@ def routes_vs_plain(cuda_scan, dev):
                 for fast in (False, True):
                     bkw = dict(cellsize=2.0, threshold_angle=1.0, fast=fast)
                     p = cuda_scan.openness_counts_block_torch(*args, **bkw)
-                    case = tile_case(
+                    k = cuda_scan.openness_counts_block_cuda(
+                        *args, out=unwritten(block, (bh, bw)), **bkw)
+                    torch.cuda.synchronize()
+                    err = max(int((a.int() - b.int()).abs().max())
+                              for a, b in zip(k, p))
+                    check(err == 0, f"K4 != plain on {where} fast={fast}")
+                    n["K4"] += 1
+                    count("K4", tile_case(
                         cuda_scan, core_nan, block, lk, fast,
                         **cuda_scan._block_tiles(block, (oy, ox), (H, W),
-                                                 lk))
-                    for tiled, ctx in tiled_runs(cuda_scan, case):
-                        with ctx():
-                            k = cuda_scan.openness_counts_block_cuda(
-                                *args, out=unwritten(block, (bh, bw)), **bkw)
-                        torch.cuda.synchronize()
-                        err = max(int((a.int() - b.int()).abs().max())
-                                  for a, b in zip(k, p))
-                        check(err == 0, f"K4 (tile path "
-                                        f"{'on' if tiled else 'off'}) != "
-                                        f"plain on {where} fast={fast}")
-                        n["K4"] += 1
-                    count("K4", case)
+                                                 lk)))
                 org = (oy - lk, ox - lk)
                 okw = dict(cellsize=2.0, lookup_pixels=lk, origin=org,
                            global_shape=(H, W))
                 p = cuda_scan.directional_extrema_torch(block, **okw)
+                k = cuda_scan.directional_extrema_cuda(
+                    block, out=unwritten_planes(block), **okw)
+                torch.cuda.synchronize()
+                worst["K3"] = max(worst["K3"], planes_equal(
+                    k, p, f"K3 origin entry on {where}"))
+                n["K3"] += 1
                 block_nan = np.isnan(block.cpu().numpy())
-                case = tile_case(cuda_scan, block_nan, block, lk, False,
-                                 origin=org, global_shape=(H, W))
-                for tiled, ctx in tiled_runs(cuda_scan, case):
-                    with ctx():
-                        k = cuda_scan.directional_extrema_cuda(
-                            block, out=unwritten_planes(block), **okw)
-                    torch.cuda.synchronize()
-                    state = "on" if tiled else "off"
-                    worst["K3"] = max(worst["K3"], planes_equal(
-                        k, p, f"K3 origin entry (tile path {state}) on "
-                              f"{where}"))
-                    n["K3"] += 1
-                count("K3 origin", case)
+                count("K3 origin", tile_case(cuda_scan, block_nan, block, lk,
+                                             False, origin=org,
+                                             global_shape=(H, W)))
     check(min(tile_runs.values()) > 0 and min(nan_in_tile.values()) > 0,
           f"a tile load path did not run in a kernel, or never over a NaN: "
           f"launches {tile_runs}, with a NaN in a tile {nan_in_tile}")
@@ -890,8 +849,9 @@ def maskless_share(cuda_scan, Zd):
     """The share of (thread block, direction) pairs that the host's route
     table (``cuda_scan.route_table``, the numpy model of the kernels'
     predicate) sends down the maskless ladder on ``Zd`` at lookup 50,
-    under K5's plan and the dynamic predicate.  What the kernels do is
-    checked by ``timings``: both routes must beat the all-masked launch."""
+    under K5's plan and the dynamic predicate, the predicates the kernels
+    evaluate per block (``ladder.cuh``: ``plan_unsafe_at``,
+    ``safe_directions_at``)."""
     share = {}
     for name, spec in (("static", True), ("dynamic", False)):
         for fast in (False, True):
@@ -903,44 +863,42 @@ def maskless_share(cuda_scan, Zd):
           f"maskless share at {tuple(Zd.shape)}: {share}, expected > 0.9")
     emit(phase="maskless_share", shape=list(Zd.shape), lookup=MAIN_LOOKUP,
          block=list(cuda_scan.BLOCK), share=share, source="host route table")
-    return share
 
 
 def full_size_vs_plain(cuda_scan, Zd):
     """Phase 6b: the kernels' raw outputs at 8192^2, lookup 50, against
     their plain versions on the same input (uncounted): K1 and K5/counts
-    (threshold 1, both ladders, tile path on and off) exactly and equal to
-    each other; K2 and K5/reduced (each mode, exact ladder, and openness
-    on the fast ladder; tile path on and off, into outputs pre-filled with
-    a value no launch writes) at the stated tolerances and equal to each
-    other bit for bit; K3's planes (tile path on and off, into NaN-filled
-    outputs) exactly by value.  The paths compare only what these outputs
-    become (classes, degrees), which can hide a wrong count or
+    (threshold 1, both ladders) exactly and equal to each other; K2 and
+    K5/reduced (each mode, exact ladder, and openness on the fast ladder;
+    into outputs pre-filled with a value no launch writes) at the stated
+    tolerances and equal to each other bit for bit; K3's planes (into
+    NaN-filled outputs) exactly by value; then K1 and K5/counts at exact
+    lookup ``NO_TILE_LOOKUP``, where no tile fits, so the per-thread
+    bodies run every block, exactly.  The paths compare only what these
+    outputs become (classes, degrees), which can hide a wrong count or
     extremum."""
     kw = dict(cellsize=10.0, lookup_pixels=MAIN_LOOKUP)
     worst = {"K1": 0, "K5/counts": 0, "K2": 0.0, "K5/reduced": 0.0,
              "K3": 0.0}
-    for fast in (False, True):
-        p = cuda_scan.openness_counts_torch(Zd, threshold_angle=1.0,
-                                            fast=fast, **kw)
+
+    def counts_vs_plain(ckw, what):
+        p = cuda_scan.openness_counts_torch(Zd, threshold_angle=1.0, **ckw)
         outs = {}
         for kid, fn in (("K1", cuda_scan.openness_counts_cuda),
                         ("K5/counts", cuda_scan.openness_counts_plan_cuda)):
-            for tiled, ctx in tiled_runs(cuda_scan):
-                with ctx():
-                    outs[kid, tiled] = fn(Zd, threshold_angle=1.0, fast=fast,
-                                          out=unwritten(Zd), **kw)
-                torch.cuda.synchronize()
-                err = max(int((a.int() - b.int()).abs().max())
-                          for a, b in zip(outs[kid, tiled], p))
-                check(err == 0, f"{kid} counts at 8192^2 fast={fast} (tile "
-                                f"path {'on' if tiled else 'off'}): kernel "
-                                f"!= plain (max |diff| {err})")
-                worst[kid] = max(worst[kid], err)
-        check(all(torch.equal(a, b) for a, b in zip(outs["K1", True],
-                                                    outs["K5/counts", True])),
-              f"K1 and K5 counts differ at 8192^2 fast={fast}")
-        del p, outs
+            outs[kid] = fn(Zd, threshold_angle=1.0, out=unwritten(Zd), **ckw)
+            torch.cuda.synchronize()
+            err = max(int((a.int() - b.int()).abs().max())
+                      for a, b in zip(outs[kid], p))
+            check(err == 0, f"{kid} counts at 8192^2 {what}: kernel != "
+                            f"plain (max |diff| {err})")
+            worst[kid] = max(worst[kid], err)
+        check(all(torch.equal(a, b) for a, b in zip(outs["K1"],
+                                                    outs["K5/counts"])),
+              f"K1 and K5 counts differ at 8192^2 {what}")
+
+    for fast in (False, True):
+        counts_vs_plain(dict(kw, fast=fast), f"fast={fast}")
     variants = [("openness", False, {}), ("svf", False, {}),
                 ("ternary", False, {"threshold_angle": 1.0}),
                 ("openness", True, {})]
@@ -950,30 +908,29 @@ def full_size_vs_plain(cuda_scan, Zd):
         outs = {}
         for kid, fn in (("K2", cuda_scan.openness_reduced_cuda),
                         ("K5/reduced", cuda_scan.openness_reduced_plan_cuda)):
-            for tiled, ctx in tiled_runs(cuda_scan):
-                with ctx():
-                    k = fn(Zd, mode, out=unwritten_reduced(Zd, mode), **mkw)
-                torch.cuda.synchronize()
-                label = f"{kid} (tile path {'on' if tiled else 'off'})"
-                worst[kid] = max(worst[kid], reduced_err(
-                    cuda_scan, mode, k, p,
-                    f"{label} {mode} fast={fast} at 8192^2"))
-                outs[label] = k
+            outs[kid] = fn(Zd, mode, out=unwritten_reduced(Zd, mode), **mkw)
+            torch.cuda.synchronize()
+            worst[kid] = max(worst[kid], reduced_err(
+                cuda_scan, mode, outs[kid], p,
+                f"{kid} {mode} fast={fast} at 8192^2"))
         reduced_identical(outs, f"{mode} fast={fast} at 8192^2")
-        del p, outs, k
+        del p, outs
     p = cuda_scan.directional_extrema_torch(Zd, **kw)
-    for tiled, ctx in tiled_runs(cuda_scan):
-        with ctx():
-            k = cuda_scan.directional_extrema_cuda(
-                Zd, out=unwritten_planes(Zd), **kw)
-        torch.cuda.synchronize()
-        state = "on" if tiled else "off"
-        worst["K3"] = max(worst["K3"], planes_equal(
-            k, p, f"K3 planes at 8192^2 (tile path {state})"))
-        del k
-    del p
+    k = cuda_scan.directional_extrema_cuda(Zd, out=unwritten_planes(Zd),
+                                           **kw)
+    torch.cuda.synchronize()
+    worst["K3"] = planes_equal(k, p, "K3 planes at 8192^2")
+    del p, k
+    ladder = cuda_scan._ladder(NO_TILE_LOOKUP)
+    for plan in (False, True):
+        check(not any(cuda_scan._tile_args(Zd, ladder[-1], len(ladder),
+                                           plan)),
+              f"a tile fits at exact lookup {NO_TILE_LOOKUP} (plan={plan})")
+    counts_vs_plain(dict(cellsize=10.0, lookup_pixels=NO_TILE_LOOKUP),
+                    f"exact lookup={NO_TILE_LOOKUP}, no tile")
     emit(phase="full_size_vs_plain", shape=list(Zd.shape),
-         lookup=MAIN_LOOKUP, max_abs_err=worst)
+         lookup=MAIN_LOOKUP, no_tile_lookup=NO_TILE_LOOKUP,
+         max_abs_err=worst)
     return worst
 
 
@@ -1314,8 +1271,7 @@ def sharded_path(ntt, cuda_scan, dev, Zd, G, G_fast):
 
 
 def mesh_blocks_vs_plain(cuda_scan, dist, Zd, mesh):
-    """K4 (both ladders) and K3's origin entry, tile path on and off,
-    against their plain versions on every haloed block of the 2 x 2 mesh
+    """K4 (both ladders) and K3's origin entry against their plain versions on every haloed block of the 2 x 2 mesh
     at 8192^2, lookup 50, the shapes and origins the sharded path gives
     them (4196^2 blocks, cores at (0 | 4096, 0 | 4096)), written into
     outputs pre-filled with a value they never write: counts and extrema
@@ -1337,31 +1293,24 @@ def mesh_blocks_vs_plain(cuda_scan, dist, Zd, mesh):
             for fast in (False, True):
                 kw = dict(cellsize=10.0, threshold_angle=1.0, fast=fast)
                 p = cuda_scan.openness_counts_block_torch(*args, **kw)
-                for tiled, ctx in tiled_runs(cuda_scan):
-                    with ctx():
-                        k = cuda_scan.openness_counts_block_cuda(
-                            *args, out=unwritten(block, bshape), **kw)
-                    err = max(int((a.int() - b.int()).abs().max())
-                              for a, b in zip(k, p))
-                    check(err == 0, f"K4 on {where} fast={fast} (tile path "
-                                    f"{'on' if tiled else 'off'}): kernel "
-                                    f"!= plain (max |diff| {err})")
-                    k4 = max(k4, err)
-                    n4 += 1
+                k = cuda_scan.openness_counts_block_cuda(
+                    *args, out=unwritten(block, bshape), **kw)
+                err = max(int((a.int() - b.int()).abs().max())
+                          for a, b in zip(k, p))
+                check(err == 0, f"K4 on {where} fast={fast}: kernel != "
+                                f"plain (max |diff| {err})")
+                k4 = max(k4, err)
+                n4 += 1
                 loads.add(tile_case(cuda_scan, np.zeros(bshape, bool), block,
                                     R, fast, **cuda_scan._block_tiles(*args)))
             kw = dict(cellsize=10.0, lookup_pixels=R, origin=(oy - R, ox - R),
                       global_shape=(H, W))
             p = cuda_scan.directional_extrema_torch(block, **kw)
-            for tiled, ctx in tiled_runs(cuda_scan):
-                with ctx():
-                    k = cuda_scan.directional_extrema_cuda(
-                        block, out=unwritten_planes(block), **kw)
-                state = "on" if tiled else "off"
-                k3 = max(k3, planes_equal(
-                    k, p, f"K3 origin entry on {where} (tile path {state})"))
-                n3 += 1
-                del k
+            k = cuda_scan.directional_extrema_cuda(
+                block, out=unwritten_planes(block), **kw)
+            k3 = max(k3, planes_equal(k, p, f"K3 origin entry on {where}"))
+            n3 += 1
+            del k
             loads.add(tile_case(cuda_scan, np.zeros(block.shape, bool), block,
                                 R, False, origin=kw["origin"],
                                 global_shape=(H, W)))
@@ -1369,11 +1318,10 @@ def mesh_blocks_vs_plain(cuda_scan, dist, Zd, mesh):
     check(loads == {("tma", False)},
           f"the 2x2 blocks' tile launches took {loads}, expected TMA")
     emit(phase="kernel_vs_plain", kernel="K4", cases=n4, max_abs_err=k4,
-         at="every 2x2 mesh block, 8192^2, lookup 50, tile path on and off",
-         tile_load="tma")
+         at="every 2x2 mesh block, 8192^2, lookup 50", tile_load="tma")
     emit(phase="kernel_vs_plain", kernel="K3 origin entry", cases=n3,
          max_abs_err=k3, tile_load="tma",
-         at="every 2x2 mesh block, 8192^2, lookup 50, tile path on and off")
+         at="every 2x2 mesh block, 8192^2, lookup 50")
     return {"K4": k4, "K3": k3}
 
 
@@ -1409,50 +1357,16 @@ def time_turns(fns, call):
     return times
 
 
-@contextlib.contextmanager
-def _switched(cuda_scan, name, value):
-    """Within the block, the module switch ``name`` of ``cuda_scan`` holds
-    ``value``."""
-    saved = getattr(cuda_scan, name)
-    setattr(cuda_scan, name, value)
-    try:
-        yield
-    finally:
-        setattr(cuda_scan, name, saved)
-
-
-def all_masked(cuda_scan):
-    """The kernels' route mask is 0, so K1-K5 run the masked ladder in
-    every direction, as the kernels did before the maskless ladder: a
-    same-call baseline for the routes."""
-    return _switched(cuda_scan, "_ALLOW_MASKLESS", 0)
-
-
-def per_thread(cuda_scan):
-    """The tile path is off, so every kernel (K1, K2, K3, K4, K5 for the
-    counts and the reductions) runs every block on its per-thread bodies,
-    as it did before the tile: a same-call baseline for the tile path."""
-    return _switched(cuda_scan, "_ALLOW_TILE", False)
-
-
-def timings(ntt, cuda_scan, Zd, mesh, card, share):
+def timings(ntt, cuda_scan, Zd, mesh, card):
     """Phase 7: median of CUDA-event times, in turns, at 8192^2, lookup 50:
-    the plain version, the kernel with every block on the masked ladder
-    (``all_masked``), the dynamic route (K1-K4) and K5's static plan (K1,
+    the plain version, the dynamic route (K1-K4) and K5's static plan (K1,
     K2), for K1 (both ladders), K2 (each mode, and openness on the fast
     ladder), K3 (whole raster, and its origin entry on block (0, 0) of the
     2 x 2 mesh, 4196^2) and K4 (that block's 4096^2 core on both ladders,
-    and ``make_mesh()``'s 1 x 1 block on one card, 8292^2); K1, K2, K3 and
-    K4 also ``per_thread``, the dynamic (and K1's and K2's static) kernels
-    with the tile path off; each route must take under ``ROUTE_GAIN`` of
-    the all-masked time, which
-    shows the kernels take the maskless ladder (``share`` is the host's
-    route table's share, printed beside it), and each tile route under
-    ``TILE_GAIN`` of its per-thread time, which shows the tile path runs;
-    K5/counts at lookup 12, the enhance pass's second launch, the same
-    way; the ``geomorphons`` call with the tile path on and off; then the
-    halo exchange alone and the ``sharded_geomorphons`` call on the
-    one-card 2 x 2 mesh against the single-device ``geomorphons``."""
+    and ``make_mesh()``'s 1 x 1 block on one card, 8292^2); K5/counts at
+    lookup 12, the enhance pass's second launch; then the halo exchange
+    alone and the ``sharded_geomorphons`` call on the one-card 2 x 2 mesh
+    against the single-device ``geomorphons``."""
     H, W = Zd.shape
     base = dict(cellsize=10.0, lookup_pixels=MAIN_LOOKUP)
     res = {}
@@ -1467,40 +1381,18 @@ def timings(ntt, cuda_scan, Zd, mesh, card, share):
                  shape=list(shape), lookup=lookup, runs=ts, median_ms=ms,
                  mpix_per_s=shape[0] * shape[1] / ms / 1e3, card=card)
 
-    def under(switch, fn):
-        def switched(*args, **kw):
-            with switch(cuda_scan):
-                return fn(*args, **kw)
-        return switched
-
-    def routes(plain, dynamic, static=None, tiled=False):
-        """The implementations to time in turns: the masked one runs the
-        dynamic kernel with the route mask 0; ``tiled``: the per-thread
-        ones run the dynamic and static kernels with the tile path off."""
-        fns = {"plain": plain, "masked": under(all_masked, dynamic),
-               "dynamic": dynamic}
-        if static is not None:
-            fns["static"] = static
-        if tiled:
-            fns["per_thread"] = under(per_thread, dynamic)
-            if static is not None:
-                fns["static_per_thread"] = under(per_thread, static)
-        return fns
-
     for fast in (False, True):
         ladder = "fast" if fast else "exact"
         record("K1", ladder, time_turns(
-            routes(cuda_scan.openness_counts_torch,
-                   cuda_scan.openness_counts_cuda,
-                   cuda_scan.openness_counts_plan_cuda, tiled=True),
+            {"plain": cuda_scan.openness_counts_torch,
+             "dynamic": cuda_scan.openness_counts_cuda,
+             "static": cuda_scan.openness_counts_plan_cuda},
             lambda fn: fn(Zd, threshold_angle=1.0, fast=fast, **base)),
             ladder=ladder)
     # the enhance pass's second launch: K5/counts at lookup 12
-    k5 = cuda_scan.openness_counts_plan_cuda
     record("K5/counts", "lookup12", time_turns(
         {"plain": cuda_scan.openness_counts_torch,
-         "masked": under(all_masked, k5), "static": k5,
-         "static_per_thread": under(per_thread, k5)},
+         "static": cuda_scan.openness_counts_plan_cuda},
         lambda fn: fn(Zd, threshold_angle=1.0, cellsize=10.0,
                       lookup_pixels=ENHANCE_LOOKUP)),
         ladder="exact", lookup=ENHANCE_LOOKUP)
@@ -1508,13 +1400,13 @@ def timings(ntt, cuda_scan, Zd, mesh, card, share):
                        ("ternary", False), ("openness", True)):
         ladder = "fast" if fast else "exact"
         record("K2", f"{mode}/{ladder}", time_turns(
-            routes(cuda_scan.openness_reduced_torch,
-                   cuda_scan.openness_reduced_cuda,
-                   cuda_scan.openness_reduced_plan_cuda, tiled=True),
+            {"plain": cuda_scan.openness_reduced_torch,
+             "dynamic": cuda_scan.openness_reduced_cuda,
+             "static": cuda_scan.openness_reduced_plan_cuda},
             lambda fn: fn(Zd, mode, threshold_angle=1.0, fast=fast, **base)),
             mode=mode, ladder=ladder)
-    k3 = routes(cuda_scan.directional_extrema_torch,
-                cuda_scan.directional_extrema_cuda, tiled=True)
+    k3 = {"plain": cuda_scan.directional_extrema_torch,
+          "dynamic": cuda_scan.directional_extrema_cuda}
     record("K3", "exact", time_turns(k3, lambda fn: fn(Zd, **base)),
            ladder="exact")
 
@@ -1526,8 +1418,8 @@ def timings(ntt, cuda_scan, Zd, mesh, card, share):
         k3, lambda fn: fn(block, origin=(-R, -R), global_shape=(H, W),
                           **base)),
         shape=tuple(block.shape), ladder="exact", block=list(block.shape))
-    k4 = routes(cuda_scan.openness_counts_block_torch,
-                cuda_scan.openness_counts_block_cuda, tiled=True)
+    k4 = {"plain": cuda_scan.openness_counts_block_torch,
+          "dynamic": cuda_scan.openness_counts_block_cuda}
     for fast in (False, True):
         ladder = "fast" if fast else "exact"
         record("K4", ladder, time_turns(
@@ -1541,31 +1433,11 @@ def timings(ntt, cuda_scan, Zd, mesh, card, share):
         ladder="exact", block=list(one.shape))
     res["K4 1x1 block"] = tuple(one.shape)
     del block, one
-    ratios, tile_ratios = {}, {}
-    baseline = {"dynamic": "per_thread", "static": "static_per_thread"}
-    for key, ms in res.items():
-        if isinstance(key, tuple) and key[2] not in ("plain", "masked"):
-            ratios[" ".join(key)] = ms / res[(*key[:2], "masked")]
-            base_key = (*key[:2], baseline.get(key[2]))
-            if base_key in res:
-                tile_ratios[" ".join(key)] = ms / res[base_key]
-    emit(phase="route_gain", over="all-masked launch, same run",
-         ratio=ratios, limit=ROUTE_GAIN, host_maskless_share=share,
-         tile_over_per_thread=tile_ratios, tile_limit=TILE_GAIN)
-    check(max(ratios.values()) < ROUTE_GAIN,
-          f"a route is not well below its all-masked time: {ratios}")
-    check(max(tile_ratios.values()) < TILE_GAIN,
-          f"a tile route is not well below its per-thread time: "
-          f"{tile_ratios}")
     record("halo", "exchange", time_turns(
         {"2x2": lambda: halo_exchange_2d(_shard(Zd, grid), MAIN_LOOKUP,
                                          "nan")},
         lambda fn: fn()), what="halo_exchange_2d, 2x2 mesh on one card")
     gkw = dict(threshold_angle=1, **base)
-    record("geomorphons", "tile", time_turns(
-        {"tile": lambda: ntt.geomorphons(Zd, **gkw),
-         "per_thread": under(per_thread, lambda: ntt.geomorphons(Zd, **gkw))},
-        lambda fn: fn()), what="call, exact: K5/counts tile path on vs off")
     record("geomorphons", "wall", time_turns(
         {"single": lambda: ntt.geomorphons(Zd, **gkw),
          "sharded": lambda: ntt.dist.sharded_geomorphons(Zd, mesh, **gkw)},
@@ -1608,8 +1480,7 @@ def kernel_table(cuda_scan, res, launches, max_err, Zd, blocks):
     per 4096^2 core of a 2 x 2 block), and its bound from this run's
     shapes (K2 and K5/reduced: the ladder and the fold, ``fold_ops``); the
     other ladder's and route's times are extra fields.  Every kernel gives
-    its per-thread time (the tile path off), a tile CTA's shared memory,
-    the share of pixels in tiles and the load path, as its launches get
+    a tile CTA's shared memory, the share of pixels in tiles and the load path, as its launches get
     them (``tile_launch``; K3 on ``Zd``, K4 on the 2 x 2 mesh's block
     (0, 0) of ``blocks``); K2 and K5/reduced also each mode's times and
     bounds on the exact ladder; K5/counts also its
@@ -1658,10 +1529,8 @@ def kernel_table(cuda_scan, res, launches, max_err, Zd, blocks):
             "launches": launches[kid], "max_abs_err": max_err[kid],
             "ms": res[(*key, route)], "plain_ms": res[(*key, "plain")],
             "bound_ms": bound_ms, "bound_by": side, "library_ms": None,
-            "ladder": key[1].split("/")[-1], "masked_ms": res[(*key,
-                                                              "masked")]})
-    routes = ("plain", "masked", "dynamic", "static", "per_thread",
-              "static_per_thread")
+            "ladder": key[1].split("/")[-1]})
+    routes = ("plain", "dynamic", "static")
     modes = ("openness", "svf", "ternary")
     kernels[0]["exact"] = {"ms": {r: res[("K1", "exact", r)]
                                   for r in routes},
@@ -1669,22 +1538,15 @@ def kernel_table(cuda_scan, res, launches, max_err, Zd, blocks):
                                              counts_bytes)[0]}
     tile_source = "neilpy_tpu_torch/csrc/ladder_tile.cuh"
     reduced_tile_source = "neilpy_tpu_torch/csrc/openness_reduced_tile.cu"
-    for k, kid, fast_, plan, impl in (
-            (0, "K1", True, False, "per_thread"),
-            (4, "K1", False, True, "static_per_thread"),
-            (1, "K2", True, False, "per_thread"),
-            (5, "K2", False, True, "static_per_thread")):
-        key = (kid, ("fast" if fast_ else "exact") if kid == "K1" else
-               f"openness/{'fast' if fast_ else 'exact'}", impl)
-        kernels[k].update(
-            per_thread_ms=res[key],
-            **tile_launch(cuda_scan, Zd, R, fast_, plan),
-            tile_source=tile_source if kid == "K1" else reduced_tile_source)
-    lk12 = {r: res[("K5/counts", "lookup12", r)]
-            for r in ("plain", "masked", "static", "static_per_thread")}
+    for k, fast_, plan, source in ((0, True, False, tile_source),
+                                   (4, False, True, tile_source),
+                                   (1, True, False, reduced_tile_source),
+                                   (5, False, True, reduced_tile_source)):
+        kernels[k].update(**tile_launch(cuda_scan, Zd, R, fast_, plan),
+                          tile_source=source)
     kernels[4]["lookup12"] = dict(
-        ms=lk12["static"], per_thread_ms=lk12["static_per_thread"],
-        masked_ms=lk12["masked"], plain_ms=lk12["plain"],
+        ms=res[("K5/counts", "lookup12", "static")],
+        plain_ms=res[("K5/counts", "lookup12", "plain")],
         bound_ms=bound(ladder_steps(H, W, cuda_scan._ladder(ENHANCE_LOOKUP)),
                        counts_bytes)[0],
         **tile_launch(cuda_scan, Zd, ENHANCE_LOOKUP, False, True))
@@ -1702,22 +1564,17 @@ def kernel_table(cuda_scan, res, launches, max_err, Zd, blocks):
     kernels[0]["fast_static_ms"] = res[("K1", "fast", "static")]
     kernels[5]["ms_by_mode"] = {m: res[("K2", f"{m}/exact", "static")]
                                 for m in modes}
-    kernels[5]["per_thread_ms_by_mode"] = {
-        m: res[("K2", f"{m}/exact", "static_per_thread")] for m in modes}
     kernels[5]["bound_ms_by_mode"] = exact_reduced_bound
 
     def timed(key):
-        """A launch's times: its tile, per-thread, masked, plain ms."""
+        """A launch's times: its kernel's and its plain version's ms."""
         return {"ms": res[(*key, "dynamic")],
-                "per_thread_ms": res[(*key, "per_thread")],
-                "masked_ms": res[(*key, "masked")],
                 "plain_ms": res[(*key, "plain")]}
 
     block, one = blocks
     block_geom = cuda_scan._block_tiles(block, (0, 0), (H, W), R)
-    kernels[2].update(
-        per_thread_ms=res[("K3", "exact", "per_thread")],
-        **tile_launch(cuda_scan, Zd, R, False), tile_source=tile_source)
+    kernels[2].update(**tile_launch(cuda_scan, Zd, R, False),
+                      tile_source=tile_source)
     kernels[2]["origin_entry"] = dict(
         launches=launches["K3 origin"], **timed(("K3", "origin")),
         bound_ms=bound(ladder_steps(Hh, Wh, exact), 4 * Hh * Wh
@@ -1726,7 +1583,6 @@ def kernel_table(cuda_scan, res, launches, max_err, Zd, blocks):
         **tile_launch(cuda_scan, block, R, False, origin=(-R, -R),
                       global_shape=(H, W)))
     kernels[3].update(
-        per_thread_ms=res[("K4", "exact", "per_thread")],
         **tile_launch(cuda_scan, block, R, False, **block_geom),
         tile_source=tile_source,
         shape=f"one {(Hh, Wh)} haloed block of 8192^2, 2x2")
@@ -2250,8 +2106,8 @@ def las_path(ntt, dev, tmp, cloud):
     def whole(*args, **kw):
         raise RuntimeError("smrf_las read the whole file through read_las")
 
-    with _switched(las_native, "read_las_chunks", counted), \
-            _switched(las_py, "read_las", whole), PeakRss() as rss:
+    with mock.patch.object(las_native, "read_las_chunks", counted), \
+            mock.patch.object(las_py, "read_las", whole), PeakRss() as rss:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         _, t, _, stats = ntt.smrf_las(src, out, device=dev, **SMRF_KW)
@@ -2322,7 +2178,7 @@ def las_path(ntt, dev, tmp, cloud):
     torch.cuda.synchronize()
     streamed_s = time.perf_counter() - t0
     G1, t1 = ntt.create_dem_from_las(src, chunk_points=n, **kw)
-    with _switched(las_native, "native_available", lambda: False):
+    with mock.patch.object(las_native, "native_available", lambda: False):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         Gr, tr = ntt.create_dem_from_las(src, **kw)
@@ -2496,8 +2352,8 @@ def codec_path(ntt, cuda_scan, dev, tmp, Z, G, G_fast, card):
             if how == "native":
                 got[how] = ntt.imread(fn)[0]
             else:
-                with _switched(tiff_codec, "_native_call",
-                               lambda *args: None):
+                with mock.patch.object(tiff_codec, "_native_call",
+                                       lambda *args: None):
                     got[how] = ntt.imread(fn)[0]
             rates[f"{codec}_{how}_decode_MBps_crop"] = a.nbytes / 2**20 / (
                 time.perf_counter() - t0)
@@ -3583,7 +3439,7 @@ def main():
                        tmp, Z, dem)
         codec_counts = phase("codec_path", codec_path, ntt, cuda_scan, dev,
                              tmp, Z, G, G_fast, card)
-    share = maskless_share(cuda_scan, Zd)
+    maskless_share(cuda_scan, Zd)
     sharded_counts, mesh, block_errs = phase(
         "sharded_path", sharded_path, ntt, cuda_scan, dev, Zd, G, G_fast)
     del G, G_fast
@@ -3591,7 +3447,7 @@ def main():
                      *phase("full_size_vs_plain", full_size_vs_plain,
                             cuda_scan, Zd).items()]:
         max_err[kid] = max(max_err[kid], err)
-    res = phase("timings", timings, ntt, cuda_scan, Zd, mesh, card, share)
+    res = phase("timings", timings, ntt, cuda_scan, Zd, mesh, card)
     cloud, smrf_prof = phase("smrf_path", smrf_path, ntt, cuda_scan, dev)
     fills = phase("inpaint_scale", inpaint_scale, ntt, dev)
     phase("smrf_oracle", smrf_oracle, ntt, dev)

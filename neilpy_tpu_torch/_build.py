@@ -130,9 +130,9 @@ def entry_argtypes():
     ll = ctypes.c_longlong
     f = ctypes.c_float
     hw = (ll, ll)
-    # every entry starts (Z, H, W, ladder, scales, K, Rmax, dense, allow)
-    # and ends with the stream
-    head = [p, *hw, p, p, i, i, i, ctypes.c_uint]
+    # every entry starts (Z, H, W, ladder, scales, K, Rmax, dense) and ends
+    # with the stream
+    head = [p, *hw, p, p, i, i, i]
     plan = [ll, ll, i, ll, ll, i]  # rlo, rhi, rmasks, clo, chi, cmasks
     tile = [i] * 6  # halo, ty0, ty1, tx0, tx1, tma
     entries = {

@@ -58,15 +58,15 @@ __global__ void __launch_bounds__(kBlockX * kBlockY)
 directional_extrema_kernel(const float* __restrict__ Z, int64_t H,
                            int64_t W, const int* __restrict__ ladder,
                            const float* __restrict__ scales, int K, int Rmax,
-                           unsigned allow, int hy0, int hy1, int hx0,
-                           int hx1, int64_t org_r, int64_t org_c, int64_t GH,
-                           int64_t GW, float* __restrict__ mx_out,
+                           int hy0, int hy1, int hx0, int hx1, int64_t org_r,
+                           int64_t org_c, int64_t GH, int64_t GW,
+                           float* __restrict__ mx_out,
                            float* __restrict__ mn_out) {
   const UnitPos u = unit_at((W + kBlockX - 1) / kBlockX, hy0, hy1, hx0, hx1);
   const DynamicRoute route{
-      kGlobal ? safe_directions_global_at(allow, Rmax, H, W, u.r0, u.c0,
-                                          org_r, org_c, GH, GW)
-              : safe_directions_at(allow, Rmax, H, W, u.r0, u.c0)};
+      kGlobal ? safe_directions_global_at(Rmax, H, W, u.r0, u.c0, org_r,
+                                          org_c, GH, GW)
+              : safe_directions_at(Rmax, H, W, u.r0, u.c0)};
   const int64_t c = u.c0 + threadIdx.x;
   const int64_t r = u.r0 + threadIdx.y;
   if (r >= H || c >= W) return;
@@ -90,9 +90,9 @@ directional_extrema_kernel(const float* __restrict__ Z, int64_t H,
 
 template <bool kGlobal, bool kDense>
 int launch(const float* Z, long long H, long long W, const int* ladder,
-           const float* scales, int K, int Rmax, unsigned allow, int halo,
-           int ty0, int ty1, int tx0, int tx1, int tma, long long org_r,
-           long long org_c, long long GH, long long GW, float* mx, float* mn,
+           const float* scales, int K, int Rmax, int halo, int ty0, int ty1,
+           int tx0, int tx1, int tma, long long org_r, long long org_c,
+           long long GH, long long GW, float* mx, float* mn,
            cudaStream_t stream) {
   const int err = launch_tiles(
       Z, H, W, ladder, scales, K, Rmax, halo, ty0, ty1, tx0, tx1, tma, 0, 0,
@@ -103,7 +103,7 @@ int launch(const float* Z, long long H, long long W, const int* ladder,
   if (blocks == 0) return 0;
   directional_extrema_kernel<kGlobal, kDense>
       <<<blocks, dim3(kBlockX, kBlockY), 0, stream>>>(
-          Z, (int64_t)H, (int64_t)W, ladder, scales, K, Rmax, allow, hole.y0,
+          Z, (int64_t)H, (int64_t)W, ladder, scales, K, Rmax, hole.y0,
           hole.y1, hole.x0, hole.x1, (int64_t)org_r, (int64_t)org_c,
           (int64_t)GH, (int64_t)GW, mx, mn);
   return (int)cudaGetLastError();
@@ -113,23 +113,22 @@ int launch(const float* Z, long long H, long long W, const int* ladder,
 
 // C entry, bound with ctypes (neilpy_tpu_torch/ops/cuda_scan.py).  All
 // pointers are device pointers; mx and mn hold 8 * H * W floats each;
-// ``dense`` says the ladder is 1..K; ``allow``, ``halo``, [ty0, ty1) x
-// [tx0, tx1) and ``tma`` as in openness_counts_launch; ``stream`` is a
+// ``dense`` says the ladder is 1..K; ``halo``, [ty0, ty1) x [tx0, tx1)
+// and ``tma`` as in openness_counts_launch; ``stream`` is a
 // cudaStream_t.  Launches on that stream, does not synchronise, and
 // returns cudaGetLastError() (or the tensor map's or the shared-memory
 // attribute's error).
 extern "C" int directional_extrema_launch(
     const float* Z, long long H, long long W, const int* ladder,
-    const float* scales, int K, int Rmax, int dense, unsigned allow,
-    int halo, int ty0, int ty1, int tx0, int tx1, int tma, float* mx,
-    float* mn, void* stream) {
+    const float* scales, int K, int Rmax, int dense, int halo, int ty0,
+    int ty1, int tx0, int tx1, int tma, float* mx, float* mn, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  return dense ? launch<false, true>(Z, H, W, ladder, scales, K, Rmax, allow,
-                                     halo, ty0, ty1, tx0, tx1, tma, 0, 0, H,
-                                     W, mx, mn, s)
-               : launch<false, false>(Z, H, W, ladder, scales, K, Rmax,
-                                      allow, halo, ty0, ty1, tx0, tx1, tma, 0,
-                                      0, H, W, mx, mn, s);
+  return dense ? launch<false, true>(Z, H, W, ladder, scales, K, Rmax, halo,
+                                     ty0, ty1, tx0, tx1, tma, 0, 0, H, W, mx,
+                                     mn, s)
+               : launch<false, false>(Z, H, W, ladder, scales, K, Rmax, halo,
+                                      ty0, ty1, tx0, tx1, tma, 0, 0, H, W, mx,
+                                      mn, s);
 }
 
 // The same with a global origin: pixel (0, 0) of Z lies at (org_r, org_c)
@@ -137,15 +136,14 @@ extern "C" int directional_extrema_launch(
 // raster); the tiles are those whose window also lies inside that raster.
 extern "C" int directional_extrema_global_launch(
     const float* Z, long long H, long long W, const int* ladder,
-    const float* scales, int K, int Rmax, int dense, unsigned allow,
-    int halo, int ty0, int ty1, int tx0, int tx1, int tma, long long org_r,
-    long long org_c, long long GH, long long GW, float* mx, float* mn,
-    void* stream) {
+    const float* scales, int K, int Rmax, int dense, int halo, int ty0,
+    int ty1, int tx0, int tx1, int tma, long long org_r, long long org_c,
+    long long GH, long long GW, float* mx, float* mn, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  return dense ? launch<true, true>(Z, H, W, ladder, scales, K, Rmax, allow,
-                                    halo, ty0, ty1, tx0, tx1, tma, org_r,
-                                    org_c, GH, GW, mx, mn, s)
-               : launch<true, false>(Z, H, W, ladder, scales, K, Rmax, allow,
-                                     halo, ty0, ty1, tx0, tx1, tma, org_r,
-                                     org_c, GH, GW, mx, mn, s);
+  return dense ? launch<true, true>(Z, H, W, ladder, scales, K, Rmax, halo,
+                                    ty0, ty1, tx0, tx1, tma, org_r, org_c, GH,
+                                    GW, mx, mn, s)
+               : launch<true, false>(Z, H, W, ladder, scales, K, Rmax, halo,
+                                     ty0, ty1, tx0, tx1, tma, org_r, org_c,
+                                     GH, GW, mx, mn, s);
 }

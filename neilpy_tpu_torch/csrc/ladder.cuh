@@ -46,9 +46,8 @@
 // block, the global raster.  Routes: DynamicRoute carries the safe
 // directions as a run-time bit mask (K1-K4), StaticRoute<kUnsafe> as a
 // compile-time one (K5's regions), so its masked/maskless choice folds
-// away.  Every entry takes a mask ``allow`` of the directions that may
-// take the maskless body at all: 0xFF on every call the package makes, 0
-// to run the masked body everywhere (a same-launch baseline for timing).
+// away.  A direction takes the maskless body wherever its route says it is
+// safe, and the masked body everywhere else.
 //
 // Two forms of the masked body, chosen at compile time by the kernel:
 // direction_extrema for a whole raster (K1, K2, K3, K5), and
@@ -230,32 +229,16 @@ __device__ __forceinline__ bool window_on(int64_t r0, int64_t c0, int d,
          c0 + kBlockX + (dc > 0 ? dc : 0) <= W;
 }
 
-// The first pixel of this thread block of a 2-D grid of 32x8 blocks.
-__device__ __forceinline__ int64_t block_row0() {
-  return (int64_t)blockIdx.y * kBlockY;
-}
-__device__ __forceinline__ int64_t block_col0() {
-  return (int64_t)blockIdx.x * kBlockX;
-}
-
 // Bit d set: direction d is safe for the thread block whose first pixel is
-// (r0, c0) on a whole raster (H, W) and allowed by ``allow``.
-__device__ __forceinline__ unsigned safe_directions_at(unsigned allow,
-                                                       int Rmax, int64_t H,
+// (r0, c0) on a whole raster (H, W).  Block-uniform.
+__device__ __forceinline__ unsigned safe_directions_at(int Rmax, int64_t H,
                                                        int64_t W, int64_t r0,
                                                        int64_t c0) {
   unsigned safe = 0u;
 #pragma unroll
   for (int d = 0; d < 8; ++d)
     safe |= window_on(r0, c0, d, Rmax, H, W) ? (1u << d) : 0u;
-  return safe & allow;
-}
-
-// The same for this thread block of a 2-D grid of 32x8 blocks.
-// Block-uniform: computed from blockIdx only.
-__device__ __forceinline__ unsigned safe_directions(unsigned allow, int Rmax,
-                                                    int64_t H, int64_t W) {
-  return safe_directions_at(allow, Rmax, H, W, block_row0(), block_col0());
+  return safe;
 }
 
 // The same for a shard block whose first pixel is (r0, c0) of the array:
@@ -263,8 +246,8 @@ __device__ __forceinline__ unsigned safe_directions(unsigned allow, int Rmax,
 // global origin (org_r, org_c) of its pixel (0, 0), inside the (GH, GW)
 // raster, so the last step needs no epilogue.
 __device__ __forceinline__ unsigned safe_directions_global_at(
-    unsigned allow, int Rmax, int64_t H, int64_t W, int64_t r0, int64_t c0,
-    int64_t org_r, int64_t org_c, int64_t GH, int64_t GW) {
+    int Rmax, int64_t H, int64_t W, int64_t r0, int64_t c0, int64_t org_r,
+    int64_t org_c, int64_t GH, int64_t GW) {
   unsigned safe = 0u;
 #pragma unroll
   for (int d = 0; d < 8; ++d) {
@@ -272,7 +255,7 @@ __device__ __forceinline__ unsigned safe_directions_global_at(
                     window_on(org_r + r0, org_c + c0, d, Rmax, GH, GW);
     safe |= ok ? (1u << d) : 0u;
   }
-  return safe & allow;
+  return safe;
 }
 
 // A route says, per direction, which body runs.
@@ -350,23 +333,12 @@ __device__ __forceinline__ void with_static_route(unsigned unsafe,
 }
 
 // The unsafe set of the thread block whose first pixel is (r0, c0) under
-// K5's plan: the union of its row and column segments' sets and of the
-// directions ``allow`` withholds (a set outside the ten takes the
-// all-masked body).
+// K5's plan: the union of its row and column segments' sets.
 __device__ __forceinline__ unsigned plan_unsafe_at(
-    unsigned allow, int64_t r0, int64_t c0, int64_t rlo, int64_t rhi,
-    unsigned rmasks, int64_t clo, int64_t chi, unsigned cmasks) {
+    int64_t r0, int64_t c0, int64_t rlo, int64_t rhi, unsigned rmasks,
+    int64_t clo, int64_t chi, unsigned cmasks) {
   return segment_unsafe(r0, rlo, rhi, rmasks) |
-         segment_unsafe(c0, clo, chi, cmasks) | (~allow & 0xFFu);
-}
-
-// The same for this thread block of a 2-D grid of 32x8 blocks.
-__device__ __forceinline__ unsigned plan_unsafe(unsigned allow, int64_t rlo,
-                                                int64_t rhi, unsigned rmasks,
-                                                int64_t clo, int64_t chi,
-                                                unsigned cmasks) {
-  return plan_unsafe_at(allow, block_row0(), block_col0(), rlo, rhi,
-                        rmasks, clo, chi, cmasks);
+         segment_unsafe(c0, clo, chi, cmasks);
 }
 
 // The openness difference diff = atan(a) - atan(b), a = -mn, b = mx,

@@ -58,7 +58,8 @@
 // - cp.async, 4 bytes a thread, for any other raster (W % 4 != 0): only
 //   the columns c0 - Rmax .. c0 + kTileW + Rmax.  About 85 copies a
 //   thread at lookup 50; forced onto an aligned 8192^2 raster it takes
-//   10-23% longer than TMA's one copy a tile (tools/tile_ab.py).
+//   10-23% longer than TMA's one copy a tile (PERF.md section 6, the
+//   tile path's bring-up record).
 //
 // The step: each (direction, entry) pair has a precomputed window offset
 // (dr*pitch + dc) * L_k and scale[d][k] in a shared table, read once per
@@ -430,7 +431,8 @@ static int launch_tiles(const float* Z, long long H, long long W,
 // blocks [hy0, hy1) x [hx0, hx1), which the tile kernel covers; an empty
 // hole enumerates the whole grid.  Against a whole 2-D grid whose blocks
 // inside the tiles return at once (about 97% of them at 8192^2), it saves
-// 0.05-0.15 ms a launch on an H100 (tools/tile_ab.py on both versions).
+// 0.05-0.15 ms a launch on an H100 (PERF.md section 6, the tile path's
+// bring-up record).
 struct UnitPos {
   int64_t r0, c0;
 };

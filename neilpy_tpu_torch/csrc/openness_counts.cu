@@ -40,9 +40,9 @@
 // step's ladder offset and scale read once per thread.  Tiles whose window
 // lies on the raster in every direction take it; the per-thread kernel
 // below runs every other 32x8 block, enumerated by a 1-D grid that leaves
-// out the tiles' rectangle (ladder_tile.cuh:unit_at).  With no tile (the
-// host's switch off, the route mask not 0xFF, or a window too large) the
-// per-thread kernel runs the whole raster.
+// out the tiles' rectangle (ladder_tile.cuh:unit_at).  With no tile (a
+// window too large, or a raster too small for one) the per-thread kernel
+// runs the whole raster.
 
 #include "openness_counts.cuh"
 #include "ladder_tile.cuh"
@@ -56,11 +56,11 @@ __global__ void __launch_bounds__(kBlockX * kBlockY)
 openness_counts_kernel(const float* __restrict__ Z, int64_t H, int64_t W,
                        const int* __restrict__ ladder,
                        const float* __restrict__ scales, int K, int Rmax,
-                       unsigned allow, int hy0, int hy1, int hx0, int hx1,
-                       float T, uint8_t* __restrict__ num_pos,
+                       int hy0, int hy1, int hx0, int hx1, float T,
+                       uint8_t* __restrict__ num_pos,
                        uint8_t* __restrict__ num_neg) {
   const UnitPos u = unit_at((W + kBlockX - 1) / kBlockX, hy0, hy1, hx0, hx1);
-  const DynamicRoute route{safe_directions_at(allow, Rmax, H, W, u.r0, u.c0)};
+  const DynamicRoute route{safe_directions_at(Rmax, H, W, u.r0, u.c0)};
   const int64_t c = u.c0 + threadIdx.x;
   const int64_t r = u.r0 + threadIdx.y;
   if (r >= H || c >= W) return;
@@ -71,9 +71,9 @@ openness_counts_kernel(const float* __restrict__ Z, int64_t H, int64_t W,
 
 template <bool kDense>
 int launch(const float* Z, long long H, long long W, const int* ladder,
-           const float* scales, int K, int Rmax, unsigned allow, int halo,
-           int ty0, int ty1, int tx0, int tx1, int tma, float T,
-           uint8_t* num_pos, uint8_t* num_neg, cudaStream_t stream) {
+           const float* scales, int K, int Rmax, int halo, int ty0, int ty1,
+           int tx0, int tx1, int tma, float T, uint8_t* num_pos,
+           uint8_t* num_neg, cudaStream_t stream) {
   const int err =
       launch_tiles(Z, H, W, ladder, scales, K, Rmax, halo, ty0, ty1, tx0, tx1,
                    tma, 0, 0, CountsOut{T, num_pos, num_neg, (int64_t)W},
@@ -84,7 +84,7 @@ int launch(const float* Z, long long H, long long W, const int* ladder,
   if (blocks == 0) return 0;
   openness_counts_kernel<kDense>
       <<<blocks, dim3(kBlockX, kBlockY), 0, stream>>>(
-          Z, (int64_t)H, (int64_t)W, ladder, scales, K, Rmax, allow, hole.y0,
+          Z, (int64_t)H, (int64_t)W, ladder, scales, K, Rmax, hole.y0,
           hole.y1, hole.x0, hole.x1, T, num_pos, num_neg);
   return (int)cudaGetLastError();
 }
@@ -92,28 +92,25 @@ int launch(const float* Z, long long H, long long W, const int* ladder,
 }  // namespace
 
 // C entry, bound with ctypes (neilpy_tpu_torch/ops/cuda_scan.py).  All
-// pointers are device pointers; ``dense`` says the ladder is 1..K; bit d
-// of ``allow`` lets direction d take the maskless ladder where it is safe
-// (0xFF; 0 runs the masked ladder everywhere); ``halo`` (16, 32, 48, 64 or
-// 96; 0 for none) is the tile kernel's halo bucket and [ty0, ty1) x [tx0, tx1)
-// its tiles of 32x64 pixels, ``tma`` its load path (1 TMA, 0 cp.async), as
-// cuda_scan.tile_route gives them; ``stream`` is a cudaStream_t.  Launches
+// pointers are device pointers; ``dense`` says the ladder is 1..K; each
+// direction takes the maskless ladder wherever it is safe for the block;
+// ``halo`` (16, 32, 48, 64 or 96; 0 for none) is the tile kernel's halo
+// bucket and [ty0, ty1) x [tx0, tx1) its tiles of 32x64 pixels, ``tma``
+// its load path (1 TMA, 0 cp.async), as cuda_scan.tile_route gives them; ``stream`` is a cudaStream_t.  Launches
 // on that stream, does not synchronise, and returns cudaGetLastError() (or
 // the tensor map's or the shared-memory attribute's error).
 extern "C" int openness_counts_launch(const float* Z, long long H,
                                       long long W, const int* ladder,
                                       const float* scales, int K, int Rmax,
-                                      int dense, unsigned allow, int halo,
-                                      int ty0, int ty1, int tx0, int tx1,
-                                      int tma, float T,
+                                      int dense, int halo, int ty0, int ty1,
+                                      int tx0, int tx1, int tma, float T,
                                       unsigned char* num_pos,
                                       unsigned char* num_neg, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  return dense ? launch<true>(Z, H, W, ladder, scales, K, Rmax, allow, halo,
-                              ty0, ty1, tx0, tx1, tma, T, num_pos, num_neg, s)
-               : launch<false>(Z, H, W, ladder, scales, K, Rmax, allow, halo,
-                               ty0, ty1, tx0, tx1, tma, T, num_pos, num_neg,
-                               s);
+  return dense ? launch<true>(Z, H, W, ladder, scales, K, Rmax, halo, ty0,
+                              ty1, tx0, tx1, tma, T, num_pos, num_neg, s)
+               : launch<false>(Z, H, W, ladder, scales, K, Rmax, halo, ty0,
+                               ty1, tx0, tx1, tma, T, num_pos, num_neg, s);
 }
 
 // C entry: the dynamic shared memory, in bytes, that one tile CTA of any

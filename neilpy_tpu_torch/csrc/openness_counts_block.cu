@@ -63,8 +63,8 @@ __global__ void __launch_bounds__(kBlockX * kBlockY)
 openness_counts_block_kernel(const float* __restrict__ Z, int64_t Hh,
                              int64_t Wh, const int* __restrict__ ladder,
                              const float* __restrict__ scales, int K,
-                             int Rmax, unsigned allow, int hy0, int hy1,
-                             int hx0, int hx1, int R, int64_t org_r,
+                             int Rmax, int hy0, int hy1, int hx0, int hx1,
+                             int R, int64_t org_r,
                              int64_t org_c, int64_t GH, int64_t GW, float T,
                              uint8_t* __restrict__ num_pos,
                              uint8_t* __restrict__ num_neg) {
@@ -75,7 +75,7 @@ openness_counts_block_kernel(const float* __restrict__ Z, int64_t Hh,
   // org_c - R) of the raster
   const UnitPos u = unit_at((bw + kBlockX - 1) / kBlockX, hy0, hy1, hx0, hx1);
   const DynamicRoute route{safe_directions_global_at(
-      allow, Rmax, Hh, Wh, R + u.r0, R + u.c0, org_r - R, org_c - R, GH, GW)};
+      Rmax, Hh, Wh, R + u.r0, R + u.c0, org_r - R, org_c - R, GH, GW)};
   const int64_t c = u.c0 + threadIdx.x;
   const int64_t r = u.r0 + threadIdx.y;
   if (r >= bh || c >= bw) return;
@@ -99,10 +99,10 @@ openness_counts_block_kernel(const float* __restrict__ Z, int64_t Hh,
 
 template <bool kDense>
 int launch(const float* Z, long long Hh, long long Wh, const int* ladder,
-           const float* scales, int K, int Rmax, unsigned allow, int halo,
-           int ty0, int ty1, int tx0, int tx1, int tma, int R,
-           long long org_r, long long org_c, long long GH, long long GW,
-           float T, uint8_t* num_pos, uint8_t* num_neg, cudaStream_t stream) {
+           const float* scales, int K, int Rmax, int halo, int ty0, int ty1,
+           int tx0, int tx1, int tma, int R, long long org_r, long long org_c,
+           long long GH, long long GW, float T, uint8_t* num_pos,
+           uint8_t* num_neg, cudaStream_t stream) {
   const long long bh = Hh - 2LL * R;
   const long long bw = Wh - 2LL * R;
   const int err =
@@ -115,9 +115,9 @@ int launch(const float* Z, long long Hh, long long Wh, const int* ladder,
   if (blocks == 0) return 0;
   openness_counts_block_kernel<kDense>
       <<<blocks, dim3(kBlockX, kBlockY), 0, stream>>>(
-          Z, (int64_t)Hh, (int64_t)Wh, ladder, scales, K, Rmax, allow,
-          hole.y0, hole.y1, hole.x0, hole.x1, R, (int64_t)org_r,
-          (int64_t)org_c, (int64_t)GH, (int64_t)GW, T, num_pos, num_neg);
+          Z, (int64_t)Hh, (int64_t)Wh, ladder, scales, K, Rmax, hole.y0,
+          hole.y1, hole.x0, hole.x1, R, (int64_t)org_r, (int64_t)org_c,
+          (int64_t)GH, (int64_t)GW, T, num_pos, num_neg);
   return (int)cudaGetLastError();
 }
 
@@ -127,24 +127,24 @@ int launch(const float* Z, long long Hh, long long Wh, const int* ladder,
 // the (Hh, Wh) haloed block with halo R; (org_r, org_c) the global origin
 // of its core and (GH, GW) the global shape; num_pos and num_neg hold
 // (Hh - 2R) * (Wh - 2R) bytes each; ``dense`` says the ladder is 1..K;
-// ``allow`` as in openness_counts_launch; ``halo``, [ty0, ty1) x [tx0,
-// tx1) and ``tma`` the tile arguments as there, the tiles counted on the
-// core's grid (cuda_scan.tile_route with the block's geometry).
+// ``halo``, [ty0, ty1) x [tx0, tx1) and ``tma`` the tile arguments as in
+// openness_counts_launch, the tiles counted on the core's grid
+// (cuda_scan.tile_route with the block's geometry).
 // All pointers are device pointers; ``stream`` is a cudaStream_t.
 // Launches on that stream, does not synchronise, and returns
 // cudaGetLastError() (or the tensor map's or the shared-memory
 // attribute's error).
 extern "C" int openness_counts_block_launch(
     const float* Z, long long Hh, long long Wh, const int* ladder,
-    const float* scales, int K, int Rmax, int dense, unsigned allow,
-    int halo, int ty0, int ty1, int tx0, int tx1, int tma, int R,
-    long long org_r, long long org_c, long long GH, long long GW, float T,
+    const float* scales, int K, int Rmax, int dense, int halo, int ty0,
+    int ty1, int tx0, int tx1, int tma, int R, long long org_r,
+    long long org_c, long long GH, long long GW, float T,
     unsigned char* num_pos, unsigned char* num_neg, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  return dense ? launch<true>(Z, Hh, Wh, ladder, scales, K, Rmax, allow, halo,
-                              ty0, ty1, tx0, tx1, tma, R, org_r, org_c, GH,
-                              GW, T, num_pos, num_neg, s)
-               : launch<false>(Z, Hh, Wh, ladder, scales, K, Rmax, allow,
-                               halo, ty0, ty1, tx0, tx1, tma, R, org_r, org_c,
-                               GH, GW, T, num_pos, num_neg, s);
+  return dense ? launch<true>(Z, Hh, Wh, ladder, scales, K, Rmax, halo, ty0,
+                              ty1, tx0, tx1, tma, R, org_r, org_c, GH, GW, T,
+                              num_pos, num_neg, s)
+               : launch<false>(Z, Hh, Wh, ladder, scales, K, Rmax, halo, ty0,
+                               ty1, tx0, tx1, tma, R, org_r, org_c, GH, GW,
+                               T, num_pos, num_neg, s);
 }

@@ -50,15 +50,15 @@ __global__ void __launch_bounds__(kBlockX * kBlockY)
 openness_counts_plan_kernel(const float* __restrict__ Z, int64_t H,
                             int64_t W, const int* __restrict__ ladder,
                             const float* __restrict__ scales, int K,
-                            int Rmax, unsigned allow, int hy0, int hy1,
-                            int hx0, int hx1, int64_t rlo, int64_t rhi,
+                            int Rmax, int hy0, int hy1, int hx0, int hx1,
+                            int64_t rlo, int64_t rhi,
                             unsigned rmasks, int64_t clo, int64_t chi,
                             unsigned cmasks, float T,
                             uint8_t* __restrict__ num_pos,
                             uint8_t* __restrict__ num_neg) {
   const UnitPos u = unit_at((W + kBlockX - 1) / kBlockX, hy0, hy1, hx0, hx1);
-  const unsigned unsafe = plan_unsafe_at(allow, u.r0, u.c0, rlo, rhi, rmasks,
-                                         clo, chi, cmasks);
+  const unsigned unsafe =
+      plan_unsafe_at(u.r0, u.c0, rlo, rhi, rmasks, clo, chi, cmasks);
   const int64_t c = u.c0 + threadIdx.x;
   const int64_t r = u.r0 + threadIdx.y;
   if (r >= H || c >= W) return;
@@ -71,8 +71,8 @@ openness_counts_plan_kernel(const float* __restrict__ Z, int64_t H,
 
 template <bool kDense>
 int launch(const float* Z, long long H, long long W, const int* ladder,
-           const float* scales, int K, int Rmax, unsigned allow, int halo,
-           int ty0, int ty1, int tx0, int tx1, int tma, long long rlo,
+           const float* scales, int K, int Rmax, int halo, int ty0,
+           int ty1, int tx0, int tx1, int tma, long long rlo,
            long long rhi, unsigned rmasks, long long clo, long long chi,
            unsigned cmasks, float T, uint8_t* num_pos, uint8_t* num_neg,
            cudaStream_t stream) {
@@ -86,7 +86,7 @@ int launch(const float* Z, long long H, long long W, const int* ladder,
   if (blocks == 0) return 0;
   openness_counts_plan_kernel<kDense>
       <<<blocks, dim3(kBlockX, kBlockY), 0, stream>>>(
-          Z, (int64_t)H, (int64_t)W, ladder, scales, K, Rmax, allow, hole.y0,
+          Z, (int64_t)H, (int64_t)W, ladder, scales, K, Rmax, hole.y0,
           hole.y1, hole.x0, hole.x1, (int64_t)rlo, (int64_t)rhi, rmasks,
           (int64_t)clo, (int64_t)chi, cmasks, T, num_pos, num_neg);
   return (int)cudaGetLastError();
@@ -99,22 +99,21 @@ int launch(const float* Z, long long H, long long W, const int* ladder,
 // interior), plus the plan: rows starting before ``rlo`` are the low
 // strip, from ``rhi`` on the high strip; ``rmasks`` packs the three row
 // segments' unsafe directions, one byte each (low, interior, high); the
-// same for columns; ``allow`` as there (its withheld directions join every
-// block's unsafe set).  Launches on ``stream``, does not synchronise, and
+// same for columns.  Launches on ``stream``, does not synchronise, and
 // returns cudaGetLastError().
 extern "C" int openness_counts_plan_launch(
     const float* Z, long long H, long long W, const int* ladder,
-    const float* scales, int K, int Rmax, int dense, unsigned allow,
-    int halo, int ty0, int ty1, int tx0, int tx1, int tma, long long rlo,
-    long long rhi, int rmasks, long long clo, long long chi, int cmasks,
-    float T, unsigned char* num_pos, unsigned char* num_neg, void* stream) {
+    const float* scales, int K, int Rmax, int dense, int halo, int ty0,
+    int ty1, int tx0, int tx1, int tma, long long rlo, long long rhi,
+    int rmasks, long long clo, long long chi, int cmasks, float T,
+    unsigned char* num_pos, unsigned char* num_neg, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  return dense ? launch<true>(Z, H, W, ladder, scales, K, Rmax, allow, halo,
-                              ty0, ty1, tx0, tx1, tma, rlo, rhi,
+  return dense ? launch<true>(Z, H, W, ladder, scales, K, Rmax, halo, ty0,
+                              ty1, tx0, tx1, tma, rlo, rhi,
                               (unsigned)rmasks, clo, chi, (unsigned)cmasks, T,
                               num_pos, num_neg, s)
-               : launch<false>(Z, H, W, ladder, scales, K, Rmax, allow, halo,
-                               ty0, ty1, tx0, tx1, tma, rlo, rhi,
+               : launch<false>(Z, H, W, ladder, scales, K, Rmax, halo, ty0,
+                               ty1, tx0, tx1, tma, rlo, rhi,
                                (unsigned)rmasks, clo, chi, (unsigned)cmasks,
                                T, num_pos, num_neg, s);
 }

@@ -40,9 +40,8 @@
 // direction take it; the per-thread kernel below runs every other 32x8
 // block, enumerated by a 1-D grid that leaves out the tiles' rectangle
 // (ladder_tile.cuh:unit_at), with the directions unrolled and the two
-// bodies of ladder.cuh.  With no tile (the host's switch off, the route
-// mask not 0xFF, or a window too large) the per-thread kernel runs the
-// whole raster.
+// bodies of ladder.cuh.  With no tile (a window too large, or a raster too
+// small for one) the per-thread kernel runs the whole raster.
 
 #include "openness_reduced.cuh"
 
@@ -55,12 +54,11 @@ __global__ void __launch_bounds__(kBlockX * kBlockY)
 openness_reduced_kernel(const float* __restrict__ Z, int64_t H, int64_t W,
                         const int* __restrict__ ladder,
                         const float* __restrict__ scales, int K, int Rmax,
-                        unsigned allow, int hy0, int hy1, int hx0, int hx1,
-                        float T, float* __restrict__ out0,
-                        float* __restrict__ out1,
+                        int hy0, int hy1, int hx0, int hx1, float T,
+                        float* __restrict__ out0, float* __restrict__ out1,
                         uint16_t* __restrict__ code) {
   const UnitPos u = unit_at((W + kBlockX - 1) / kBlockX, hy0, hy1, hx0, hx1);
-  const DynamicRoute route{safe_directions_at(allow, Rmax, H, W, u.r0, u.c0)};
+  const DynamicRoute route{safe_directions_at(Rmax, H, W, u.r0, u.c0)};
   const int64_t c = u.c0 + threadIdx.x;
   const int64_t r = u.r0 + threadIdx.y;
   if (r >= H || c >= W) return;
@@ -72,10 +70,9 @@ openness_reduced_kernel(const float* __restrict__ Z, int64_t H, int64_t W,
 template <int kMode, bool kNegMode, bool kDense>
 struct Launch {
   static int run(const float* Z, long long H, long long W, const int* ladder,
-                 const float* scales, int K, int Rmax, unsigned allow,
-                 int halo, int ty0, int ty1, int tx0, int tx1, int tma,
-                 float T, float* out0, float* out1, uint16_t* code,
-                 cudaStream_t stream) {
+                 const float* scales, int K, int Rmax, int halo, int ty0,
+                 int ty1, int tx0, int tx1, int tma, float T, float* out0,
+                 float* out1, uint16_t* code, cudaStream_t stream) {
     const int err = reduced_tiles<kMode, kNegMode>(
         Z, H, W, ladder, scales, K, Rmax, halo, ty0, ty1, tx0, tx1, tma, T,
         out0, out1, code, stream);
@@ -85,8 +82,8 @@ struct Launch {
     if (blocks == 0) return 0;
     openness_reduced_kernel<kMode, kNegMode, kDense>
         <<<blocks, dim3(kBlockX, kBlockY), 0, stream>>>(
-            Z, (int64_t)H, (int64_t)W, ladder, scales, K, Rmax, allow,
-            hole.y0, hole.y1, hole.x0, hole.x1, T, out0, out1, code);
+            Z, (int64_t)H, (int64_t)W, ladder, scales, K, Rmax, hole.y0,
+            hole.y1, hole.x0, hole.x1, T, out0, out1, code);
     return (int)cudaGetLastError();
   }
 };
@@ -96,9 +93,9 @@ struct Launch {
 // C entry, bound with ctypes (neilpy_tpu_torch/ops/cuda_scan.py).  ``mode``
 // is 0 (openness: out0 = pos sum, out1 = neg sum), 1 (svf: out0) or 2
 // (ternary: code, with ``neg_mode`` 0 or 1); the outputs a mode does not
-// write may be null.  ``dense`` says the ladder is 1..K; ``allow`` and the
-// tile arguments (``halo``, ``ty0``, ``ty1``, ``tx0``, ``tx1``, ``tma``)
-// as in openness_counts_launch.  All pointers are device pointers;
+// write may be null.  ``dense`` says the ladder is 1..K; the tile
+// arguments (``halo``, ``ty0``, ``ty1``, ``tx0``, ``tx1``, ``tma``) as in
+// openness_counts_launch.  All pointers are device pointers;
 // ``stream`` is a cudaStream_t.  Launches on that stream, does not
 // synchronise, and returns cudaGetLastError() (or the tensor map's or the
 // shared-memory attribute's error), or cudaErrorInvalidValue for an
@@ -106,13 +103,13 @@ struct Launch {
 extern "C" int openness_reduced_launch(const float* Z, long long H,
                                        long long W, const int* ladder,
                                        const float* scales, int K, int Rmax,
-                                       int dense, unsigned allow, int halo,
-                                       int ty0, int ty1, int tx0, int tx1,
-                                       int tma, int mode, int neg_mode,
-                                       float T, float* out0, float* out1,
+                                       int dense, int halo, int ty0,
+                                       int ty1, int tx0, int tx1, int tma,
+                                       int mode, int neg_mode, float T,
+                                       float* out0, float* out1,
                                        unsigned short* code, void* stream) {
   return dispatch_mode<Launch>(mode, neg_mode, dense, Z, H, W, ladder,
-                               scales, K, Rmax, allow, halo, ty0, ty1, tx0,
-                               tx1, tma, T, out0, out1, code,
+                               scales, K, Rmax, halo, ty0, ty1, tx0, tx1,
+                               tma, T, out0, out1, code,
                                (cudaStream_t)stream);
 }

@@ -165,15 +165,6 @@ def _check_mode(mode):
 # ----------------------------------------------------------------------
 # (rows, cols) of one thread block: ladder.cuh's kBlockY x kBlockX
 BLOCK = (8, 32)
-# the kernels' route mask ``allow``: bit d lets direction d take the
-# maskless ladder where it is safe.  0 runs the masked ladder everywhere,
-# as the kernels did before the maskless ladder (chip_smoke.py's timing
-# baseline); the outputs do not change.
-_ALLOW_MASKLESS = 0xFF
-# the tile path of every kernel, K1-K5 (csrc/ladder_tile.cuh): off sends
-# every block to the per-thread bodies, the kernels as they were before it
-# (chip_smoke.py's same-call baseline); the outputs do not change
-_ALLOW_TILE = True
 # (rows, cols) of the tile kernel's core: 4 x 2 thread blocks
 TILE = (32, 64)
 # the tile kernel's halo buckets (its window pitch is TILE[1] + 2 * halo),
@@ -287,7 +278,7 @@ def dynamic_safe(shape, Rmax, grid=None, grid0=(0, 0), origin=None,
                  global_shape=None):
     """(8, nby, nbx) numpy bool: direction d is maskless for thread block
     (by, bx) on the dynamic route, as
-    ``ladder.cuh:safe_directions``: the block's whole read window, shifted
+    ``ladder.cuh:safe_directions_global_at``: the block's whole read window, shifted
     by d*1 .. d*Rmax, lies on the ``shape`` array and, given the array's
     ``origin`` (global row, col of its pixel (0, 0)), inside the
     ``global_shape`` raster (pallas_scan.py:_dir_is_safe).  The grid of
@@ -704,10 +695,8 @@ def _check_cuda(Z, name):
 def _tile_args(Z, Rmax, K, plan, **geometry):
     """The tile arguments of the C entries: (halo, ty0, ty1, tx0, tx1, tma)
     for array ``Z`` and a shard block's ``geometry`` (:func:`tile_route`),
-    all 0 when the tile path is off (``_ALLOW_TILE``), the route mask
-    withholds a direction, or no tile fits."""
-    t = (tile_route(*Z.shape, Rmax, plan, K, **geometry)
-         if _ALLOW_TILE and _ALLOW_MASKLESS == 0xFF else _NO_TILE)
+    all 0 where no tile fits."""
+    t = tile_route(*Z.shape, Rmax, plan, K, **geometry)
     if not t.n_tiles:
         return (0,) * 6
     return (t.halo, *t.rows, *t.cols, _tile_load(Z))
@@ -728,10 +717,10 @@ def _run_entry(Z, entry, args):
 def _launch(Z, entry, cellsize, lookup_pixels, fast, how_fast, *args,
             plan=False, tiles=None):
     """Launch C entry ``entry`` for raster ``Z`` with its ladder tables,
-    the dense-ladder flag and the route mask ``_ALLOW_MASKLESS``, then the
-    tile arguments unless ``tiles`` is None (:func:`_tile_args` with the
-    geometry ``tiles``, ``{}`` for a whole raster), then K5's region plan
-    if ``plan``, then ``args``, on Z's device and current stream
+    the dense-ladder flag, then the tile arguments (:func:`_tile_args`
+    with a shard block's geometry ``tiles``, None for a whole raster),
+    then K5's region plan if ``plan``, then ``args``, on Z's device and
+    current stream
     (:func:`_run_entry`); a launch on the tile path is counted in
     ``tile_loads``.  The launch is the span ``cuda_scan.launch`` with the
     entry's name, its device time that of the entry call alone."""
@@ -741,11 +730,10 @@ def _launch(Z, entry, cellsize, lookup_pixels, fast, how_fast, *args,
         ladder_t, scales = _device_tables(float(cellsize), ladder, Z.device)
         dense = ladder == tuple(range(1, len(ladder) + 1))
         H, W = Z.shape
-        tile = (() if tiles is None
-                else _tile_args(Z, Rmax, len(ladder), plan, **tiles))
+        tile = _tile_args(Z, Rmax, len(ladder), plan, **(tiles or {}))
         _run_entry(Z, entry, (
             Z.data_ptr(), H, W, ladder_t.data_ptr(), scales.data_ptr(),
-            len(ladder), Rmax, int(dense), _ALLOW_MASKLESS, *tile,
+            len(ladder), Rmax, int(dense), *tile,
             *(region_plan(H, W, Rmax) if plan else ()), *args))
         if any(tile):
             tile_loads[(H, W, tile[-1])] += 1
@@ -775,7 +763,7 @@ def _counts_cuda(Z, name, cellsize, lookup_pixels, threshold_angle, fast,
         return num_pos, num_neg, False
     _launch(Z, f"{name[:-len('_cuda')]}_launch", cellsize, lookup_pixels,
             fast, how_fast, _threshold_tangent(threshold_angle),
-            num_pos.data_ptr(), num_neg.data_ptr(), plan=plan, tiles={})
+            num_pos.data_ptr(), num_neg.data_ptr(), plan=plan)
     return num_pos, num_neg, True
 
 
@@ -876,7 +864,7 @@ def directional_extrema_cuda(Z, cellsize=1.0, lookup_pixels=1, fast=False,
         return mx, mn
     if origin is None and global_shape is None:
         _launch(Z, "directional_extrema_launch", cellsize, lookup_pixels,
-                fast, how_fast, mx.data_ptr(), mn.data_ptr(), tiles={})
+                fast, how_fast, mx.data_ptr(), mn.data_ptr())
     else:
         org = (0, 0) if origin is None else (int(origin[0]), int(origin[1]))
         gshape = tuple(map(int, Z.shape if global_shape is None
@@ -907,7 +895,7 @@ def _reduced_cuda(Z, name, mode, cellsize, lookup_pixels, threshold_angle,
         return outs, False
     _launch(Z, f"{name[:-len('_cuda')]}_launch", cellsize, lookup_pixels,
             fast, how_fast, _MODES[mode], int(bool(neg_mode)),
-            _threshold_tangent(threshold_angle), *ptrs, plan=plan, tiles={})
+            _threshold_tangent(threshold_angle), *ptrs, plan=plan)
     return outs, True
 
 

@@ -14,13 +14,15 @@ the reductions (``csrc/ladder_tile.cuh``), on the CPU: its host mirror
 - shared memory stays within the card's 232,448 bytes, and a lookup
   beyond it gets no tile; at 8192^2, lookup 50, >= 95% of the pixels lie
   in tile CTAs;
-- the tile switches change neither the route table nor a CPU output
-  (counts and each reduction);
+- where no tile fits (an exact reach beyond the largest halo bucket, a
+  raster or a shard core smaller than one tile) the tile arguments are
+  zeros, and the per-thread bodies' routes give the masked ladder's CPU
+  outputs (counts and each reduction);
 - the reduced wrappers hand their C entries the tile arguments of
   ``_tile_args`` (K2 the dynamic tiles, K5/reduced the plan's interior)
-  in the entry's order, and zeros with the tile path or a direction of
-  the route mask off; ``cuda_scan.tile_loads`` counts each tile-path
-  launch by shape and load path;
+  in the entry's order, zeros where no tile fits;
+  ``cuda_scan.tile_loads`` counts each tile-path launch by shape and
+  load path;
 - shard blocks (K4 on its core's grid at (R, R), K3's origin entry on the
   haloed block), the blocks of 1x1, 2x2 and 2x3 meshes over three rasters
   at lookups 1, 12, 24 and 50 on both ladders: every read in the window,
@@ -32,8 +34,8 @@ the reductions (``csrc/ladder_tile.cuh``), on the CPU: its host mirror
   lookup 50; the haloed blocks TMA can load.
 
 The kernels themselves run on the card only: the ``cuda`` tests skip here
-and ``chip_smoke.py`` holds every kernel, tile path on and off, against
-the plain version.
+and, with ``chip_smoke.py``, hold every kernel against the plain version,
+on inputs that take tiles and on inputs where no tile fits.
 """
 
 import collections
@@ -203,45 +205,43 @@ def test_smem_cap_and_tile_share(spec, fast):
     assert 2 * t.smem_bytes <= 228 * 1024
 
 
-def _cpu_outputs(Z, output, **kw):
-    """The CPU output ``output`` names: the counts or a reduction."""
-    if output == "counts":
-        return cs.openness_counts(Z, threshold_angle=1.0, **kw)
-    mode, extra = REDUCED_VARIANTS[output]
-    return cs.openness_reduced(Z, mode, **kw, **extra)
-
-
 @pytest.mark.parametrize("output", ["counts", *REDUCED_VARIANTS])
 def test_tile_switches_change_no_route_or_output(output):
-    """The tile switch and the route mask reach only the kernels' tile
-    arguments: the route table (the per-thread blocks' routing), the CPU
-    outputs (the counts, each reduction) and the 98.9% maskless share at
-    8192^2 stay as they were."""
+    """Where no tile fits (exact lookup 100, a reach beyond the largest
+    halo bucket) the kernels get all-zero tile arguments, while at lookup
+    12 on the same raster they get a tile; the per-thread bodies then run
+    every block on the route tables' routes: K5's plan (unsafe wherever
+    the dynamic predicate is, and some blocks maskless under both) and the
+    dynamic predicate give the masked ladder's CPU outputs (the counts,
+    each reduction), and the 98.9% maskless share at 8192^2 stays."""
     Z = torch.from_numpy(np.random.default_rng(5).normal(size=(257, 389))
                          .cumsum(0).cumsum(1).astype(np.float32))
-    kw = dict(cellsize=2.0, lookup_pixels=12)
-    saved = cs._ALLOW_TILE
-    try:
-        outs = []
-        for on in (True, False):
-            cs._ALLOW_TILE = on
-            outs.append((cs.route_table(Z, 12, specialize=True),
-                         cs.route_table(Z, 12, specialize=False),
-                         *_cpu_outputs(Z, output, **kw)))
-            args = cs._tile_args(Z, 12, 12, True)
-            assert (args[0] == 16 and args[5] == 0) if on else not any(args)
-    finally:
-        cs._ALLOW_TILE = saved
-    assert all(torch.equal(a, b) for a, b in zip(*outs))
+    args = cs._tile_args(Z, 12, 12, True)
+    assert args[0] == 16 and args[5] == 0
+    _, Rmax, K = _reach(100, False)
+    assert Rmax > max(cs._TILE_HALOS)
+    for plan in (False, True):
+        assert cs._tile_args(Z, Rmax, K, plan) == (0,) * 6
+    static = cs.route_table(Z, 100, specialize=True)
+    dynamic = cs.route_table(Z, 100, specialize=False)
+    assert not (static & ~dynamic).any() and static.any()
+    kw = dict(cellsize=2.0, lookup_pixels=100)
+    if output == "counts":
+        def run(route):
+            return cs.openness_counts_torch(Z, threshold_angle=1.0,
+                                            route=route, **kw)
+    else:
+        mode, extra = REDUCED_VARIANTS[output]
+
+        def run(route):
+            return cs.openness_reduced_torch(Z, mode, route=route, **kw,
+                                             **extra)
+    masked = run(None)
+    for route in ("static", "dynamic"):
+        assert all(torch.equal(a, b) for a, b in zip(run(route), masked))
     big = torch.empty((8192, 8192), dtype=torch.float32)
     share = float(cs.route_table(big, 50, specialize=True).float().mean())
     assert abs(share - 0.989) < 5e-4
-    saved = cs._ALLOW_MASKLESS
-    try:
-        cs._ALLOW_MASKLESS = 0
-        assert not any(cs._tile_args(Z, 12, 12, True))
-    finally:
-        cs._ALLOW_MASKLESS = saved
 
 
 def test_tile_load_rule():
@@ -460,35 +460,51 @@ def test_haloed_blocks_take_tma():
 
 
 def test_shard_tile_args_follow_the_switches():
-    """The K3 and K4 tile arguments go off with the tile switch and the
-    route mask, as K1's."""
+    """The K3 and K4 tile arguments of a haloed 4196^2 block at lookup 50,
+    and all zeros, as K1's, where no tile fits: at exact lookup 100 on the
+    same geometry and on a block whose core is smaller than one tile."""
     block = torch.zeros((4196, 4196))
     geom = dict(grid0=(50, 50), core=(4096, 4096), origin=(-50, -50),
                 global_shape=(8192, 8192))
-    args = cs._tile_args(block, 50, 50, False, **geom)
-    assert args == (64, 2, 128, 1, 64, 1)
-    for name, value in (("_ALLOW_TILE", False), ("_ALLOW_MASKLESS", 0)):
-        saved = getattr(cs, name)
-        try:
-            setattr(cs, name, value)
-            assert not any(cs._tile_args(block, 50, 50, False, **geom))
-        finally:
-            setattr(cs, name, saved)
+    assert cs._tile_args(block, 50, 50, False, **geom) == (64, 2, 128, 1, 64,
+                                                           1)
+    _, Rmax, K = _reach(100, False)
+    geom = dict(grid0=(100, 100), core=(3996, 3996), origin=(-100, -100),
+                global_shape=(8192, 8192))
+    assert cs._tile_args(block, Rmax, K, False, **geom) == (0,) * 6
+    small = torch.zeros((124, 148))
+    geom = dict(grid0=(50, 50), core=(24, 48), origin=(-50, -50),
+                global_shape=(8192, 8192))
+    assert cs._tile_args(small, 50, 50, False, **geom) == (0,) * 6
 
 
-@pytest.mark.parametrize("switch", [None, ("_ALLOW_TILE", False),
-                                    ("_ALLOW_MASKLESS", 0)])
+# the reduced wrappers' inputs: (shape, lookup, fast, the tile load path
+# or None where no tile fits): tiles (TMA on a 900-wide raster, cp.async
+# on a 771-wide one); an exact reach beyond the largest halo bucket on
+# the same rasters; rasters smaller than one tile's window
+WRAPPER_INPUTS = {
+    "tiled": (((600, 900), 50, False, 1), ((600, 900), 50, True, 1),
+              ((515, 771), 12, False, 0)),
+    "beyond_halo": (((600, 900), 100, False, None),
+                    ((600, 900), 95, False, None),
+                    ((515, 771), 100, False, None)),
+    "small": (((40, 60), 12, False, None), ((30, 200), 2, True, None),
+              ((97, 45), 1, False, None)),
+}
+
+
+@pytest.mark.parametrize("inputs", list(WRAPPER_INPUTS))
 @pytest.mark.parametrize("variant", list(REDUCED_VARIANTS))
 @pytest.mark.parametrize("plan", [False, True])
 def test_reduced_wrappers_pass_the_tile_arguments(monkeypatch, plan, variant,
-                                                  switch):
+                                                  inputs):
     """What K2 (``plan`` False) and K5/reduced hand their C entries, caught
-    at ``cuda_scan._run_entry``: the head (raster, ladder, route mask),
-    then ``_tile_args(..., plan)``, then K5's region plan, then the mode,
+    at ``cuda_scan._run_entry``: the head (raster, ladder), then
+    ``_tile_args(..., plan)``, then K5's region plan, then the mode,
     ``neg_mode``, the threshold's tangent and the mode's output pointers,
     as many as the entry's ctypes declaration takes; the tile arguments
-    are zeros with the tile path off or the route mask not 0xFF.  TMA on a
-    900-wide raster, cp.async on a 771-wide one."""
+    are ``tile_route``'s with the load path where a tile fits, zeros where
+    none does (``WRAPPER_INPUTS``)."""
     from neilpy_tpu_torch import _build
     mode, extra = REDUCED_VARIANTS[variant]
     fn = cs.openness_reduced_plan_cuda if plan else cs.openness_reduced_cuda
@@ -499,11 +515,7 @@ def test_reduced_wrappers_pass_the_tile_arguments(monkeypatch, plan, variant,
     monkeypatch.setattr(cs, "_run_entry",
                         lambda Z, name, args: calls.append((name, args)))
     monkeypatch.setattr(fn, "launches", 0)
-    if switch is not None:
-        monkeypatch.setattr(cs, *switch)
-    for shape, lookup, fast, tma in (((600, 900), 50, False, 1),
-                                     ((600, 900), 50, True, 1),
-                                     ((515, 771), 12, False, 0)):
+    for shape, lookup, fast, tma in WRAPPER_INPUTS[inputs]:
         Z = torch.zeros(shape)
         outs = fn(Z, mode, cellsize=2.0, lookup_pixels=lookup, fast=fast,
                   **extra)
@@ -513,17 +525,17 @@ def test_reduced_wrappers_pass_the_tile_arguments(monkeypatch, plan, variant,
         ladder = cs._ladder(lookup, fast)
         Rmax, K = ladder[-1], len(ladder)
         dense = ladder == tuple(range(1, K + 1))
-        assert args[:9] == (Z.data_ptr(), *shape, args[3], args[4], K, Rmax,
-                            int(dense), cs._ALLOW_MASKLESS)
-        tile = args[9:15]
+        assert args[:8] == (Z.data_ptr(), *shape, args[3], args[4], K, Rmax,
+                            int(dense))
+        tile = args[8:14]
         assert tile == cs._tile_args(Z, Rmax, K, plan)
-        if switch is None:
-            want = cs.tile_route(*shape, Rmax, plan, K)
+        want = cs.tile_route(*shape, Rmax, plan, K)
+        if tma is None:
+            assert tile == (0,) * 6 and want.n_tiles == 0
+        else:
             assert tile == (want.halo, *want.rows, *want.cols, tma)
             assert want.n_tiles > 0
-        else:
-            assert tile == (0,) * 6
-        rest = args[15:]
+        rest = args[14:]
         if plan:
             assert rest[:6] == cs.region_plan(*shape, Rmax)
             rest = rest[6:]
@@ -541,8 +553,9 @@ def test_reduced_wrappers_pass_the_tile_arguments(monkeypatch, plan, variant,
 def test_tile_path_launches_are_counted_by_shape_and_load(monkeypatch):
     """``cuda_scan.tile_loads`` counts each launch that took the tile path
     by (rows, columns, load path), after the launch: K1 on a 900-wide
-    raster (TMA) twice and a 771-wide one (cp.async) once; nothing with the
-    tile path off, and nothing for a launch that raised."""
+    raster (TMA) twice and a 771-wide one (cp.async) once; nothing for a
+    launch where no tile fits (exact lookup 100), and nothing for a launch
+    that raised."""
     monkeypatch.setattr(cs, "_check_cuda", lambda Z, name: None)
     monkeypatch.setattr(cs, "_run_entry", lambda Z, name, args: None)
     monkeypatch.setattr(cs, "tile_loads", collections.Counter())
@@ -550,9 +563,7 @@ def test_tile_path_launches_are_counted_by_shape_and_load(monkeypatch):
     for shape in ((600, 900), (600, 900), (515, 771)):
         cs.openness_counts_cuda(torch.zeros(shape), lookup_pixels=50)
     assert cs.tile_loads == {(600, 900, 1): 2, (515, 771, 0): 1}
-    monkeypatch.setattr(cs, "_ALLOW_TILE", False)
-    cs.openness_counts_cuda(torch.zeros((600, 900)), lookup_pixels=50)
-    monkeypatch.setattr(cs, "_ALLOW_TILE", True)
+    cs.openness_counts_cuda(torch.zeros((600, 900)), lookup_pixels=100)
 
     def fail(Z, name, args):
         raise RuntimeError("launch failed")
@@ -571,10 +582,15 @@ def card():
     return torch.device("cuda", 0)
 
 
+# (shape, lookup, fast) of the card tests: tiles on both load paths, and
+# an exact reach where no tile fits, so the per-thread bodies run every
+# block
+CARD_CASES = [((600, 900), 12, False), ((515, 771), 50, True),
+              ((1000, 1537), 50, False), ((600, 900), 100, False)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,lookup,fast", [
-    ((600, 900), 12, False), ((515, 771), 50, True), ((1000, 1537), 50,
-                                                      False)])
+@pytest.mark.parametrize("shape,lookup,fast", CARD_CASES)
 def test_tile_path_matches_plain_on_card(card, shape, lookup, fast):
     Z = np.random.default_rng(9).normal(size=shape).cumsum(0).cumsum(1)
     Z = Z.astype(np.float32)
@@ -583,19 +599,13 @@ def test_tile_path_matches_plain_on_card(card, shape, lookup, fast):
     kw = dict(cellsize=2.0, lookup_pixels=lookup, threshold_angle=1.0,
               fast=fast)
     plain = cs.openness_counts_torch(Zd, **kw)
-    saved = cs._ALLOW_TILE
-    try:
-        for on in (True, False):
-            cs._ALLOW_TILE = on
-            for fn in (cs.openness_counts_cuda, cs.openness_counts_plan_cuda):
-                # pre-filled: a pixel no launch writes would show
-                out = tuple(torch.full(shape, 255, dtype=torch.uint8,
-                                       device=card) for _ in range(2))
-                got = fn(Zd, out=out, **kw)
-                torch.cuda.synchronize()
-                assert all(torch.equal(a, b) for a, b in zip(got, plain))
-    finally:
-        cs._ALLOW_TILE = saved
+    for fn in (cs.openness_counts_cuda, cs.openness_counts_plan_cuda):
+        # pre-filled: a pixel no launch writes would show
+        out = tuple(torch.full(shape, 255, dtype=torch.uint8, device=card)
+                    for _ in range(2))
+        got = fn(Zd, out=out, **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, plain))
 
 
 def _nan_raster(shape, seed):
@@ -606,13 +616,11 @@ def _nan_raster(shape, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,lookup,fast", [
-    ((600, 900), 12, False), ((515, 771), 50, True), ((1000, 1537), 50,
-                                                      False)])
+@pytest.mark.parametrize("shape,lookup,fast", CARD_CASES)
 def test_k3_tile_path_matches_plain_on_card(card, shape, lookup, fast):
     """K3, both entries (the origin entry on the raster's centre block of a
-    3x3 cut), tile path on and off, into outputs pre-filled with NaN,
-    which no kernel writes: equal to the plain version by value."""
+    3x3 cut), into outputs pre-filled with NaN, which no kernel writes:
+    equal to the plain version by value."""
     Z = _nan_raster(shape, 10)
     Zd = torch.from_numpy(Z).to(card)
     H, W = shape
@@ -623,29 +631,21 @@ def test_k3_tile_path_matches_plain_on_card(card, shape, lookup, fast):
     cases = [(Zd, {}), (block, dict(origin=(H // 3 - lookup,
                                             W // 3 - lookup),
                                     global_shape=shape))]
-    saved = cs._ALLOW_TILE
-    try:
-        for Z_, extra in cases:
-            kw = dict(cellsize=2.0, lookup_pixels=lookup, fast=fast, **extra)
-            plain = cs.directional_extrema_torch(Z_, **kw)
-            for on in (True, False):
-                cs._ALLOW_TILE = on
-                out = tuple(torch.full((8, *Z_.shape), float("nan"),
-                                       device=card) for _ in range(2))
-                got = cs.directional_extrema_cuda(Z_, out=out, **kw)
-                torch.cuda.synchronize()
-                assert all(torch.equal(a, b) for a, b in zip(got, plain))
-    finally:
-        cs._ALLOW_TILE = saved
+    for Z_, extra in cases:
+        kw = dict(cellsize=2.0, lookup_pixels=lookup, fast=fast, **extra)
+        plain = cs.directional_extrema_torch(Z_, **kw)
+        out = tuple(torch.full((8, *Z_.shape), float("nan"), device=card)
+                    for _ in range(2))
+        got = cs.directional_extrema_cuda(Z_, out=out, **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, plain))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,lookup,fast", [
-    ((600, 900), 12, False), ((515, 771), 50, True), ((1000, 1537), 50,
-                                                      False)])
+@pytest.mark.parametrize("shape,lookup,fast", CARD_CASES)
 def test_k4_tile_path_matches_plain_on_card(card, shape, lookup, fast):
-    """K4 on every block of a 2x2 cut of the raster, tile path on and off,
-    into outputs pre-filled with 255: equal to the plain version."""
+    """K4 on every block of a 2x2 cut of the raster, into outputs
+    pre-filled with 255: equal to the plain version."""
     from neilpy_tpu_torch.dist.halo import _shard, halo_exchange_2d
     Z = _nan_raster(shape, 11)
     H, W = (shape[0] // 2) * 2, (shape[1] // 2) * 2
@@ -654,72 +654,58 @@ def test_k4_tile_path_matches_plain_on_card(card, shape, lookup, fast):
     grid[:] = card
     blocks = halo_exchange_2d(_shard(Zd, grid), lookup, "nan")
     kw = dict(cellsize=2.0, threshold_angle=1.0, fast=fast)
-    saved = cs._ALLOW_TILE
-    try:
-        for y, row in enumerate(blocks):
-            for x, block in enumerate(row):
-                args = (block, (y * H // 2, x * W // 2), (H, W), lookup)
-                plain = cs.openness_counts_block_torch(*args, **kw)
-                for on in (True, False):
-                    cs._ALLOW_TILE = on
-                    out = tuple(torch.full(plain[0].shape, 255,
-                                           dtype=torch.uint8, device=card)
-                                for _ in range(2))
-                    got = cs.openness_counts_block_cuda(*args, out=out, **kw)
-                    torch.cuda.synchronize()
-                    assert all(torch.equal(a, b)
-                               for a, b in zip(got, plain))
-    finally:
-        cs._ALLOW_TILE = saved
+    for y, row in enumerate(blocks):
+        for x, block in enumerate(row):
+            args = (block, (y * H // 2, x * W // 2), (H, W), lookup)
+            plain = cs.openness_counts_block_torch(*args, **kw)
+            out = tuple(torch.full(plain[0].shape, 255, dtype=torch.uint8,
+                                   device=card) for _ in range(2))
+            got = cs.openness_counts_block_cuda(*args, out=out, **kw)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(got, plain))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("plan", [False, True])
-@pytest.mark.parametrize("shape,lookup,fast", [
-    ((600, 900), 12, False), ((515, 771), 50, True), ((1000, 1537), 50,
-                                                      False)])
+@pytest.mark.parametrize("shape,lookup,fast", CARD_CASES)
 def test_reduced_tile_path_matches_plain_on_card(card, shape, lookup, fast,
                                                  plan):
-    """K2 (``plan`` False) and K5/reduced, every mode variant, tile path on
-    and off, into outputs pre-filled with a value no launch writes (NaN
-    for the sums, 0xFFFF for the codes): the two launches equal each other
-    bit for bit, the codes equal the plain version, openness within 5e-5
+    """K2 (``plan`` False) or K5/reduced, every mode variant, into outputs
+    pre-filled with a value no launch writes (NaN for the sums, 0xFFFF for
+    the codes): equal to the other kernel, whose tiles and routes differ,
+    bit for bit; the codes equal the plain version, openness within 5e-5
     degrees (+inf at the same pixels) and skyview within 1e-6 of it."""
     Z = _nan_raster(shape, 12)
     Zd = torch.from_numpy(Z).to(card)
-    fn = cs.openness_reduced_plan_cuda if plan else cs.openness_reduced_cuda
-    saved = cs._ALLOW_TILE
-    try:
-        for mode, extra in REDUCED_VARIANTS.values():
-            kw = dict(cellsize=2.0, lookup_pixels=lookup, fast=fast, **extra)
-            plain = cs.openness_reduced_torch(Zd, mode, **kw)
-            got = []
-            for on in (True, False):
-                cs._ALLOW_TILE = on
-                if mode == "ternary":
-                    out = (torch.full(shape, 0xFFFF, dtype=torch.int32,
-                                      device=card).to(torch.uint16),)
-                else:
-                    out = tuple(torch.full(shape, float("nan"), device=card)
-                                for _ in range(len(plain)))
-                got.append(fn(Zd, mode, out=out, **kw))
-                torch.cuda.synchronize()
-            for a, b in zip(*got):
-                if mode == "ternary":
-                    assert torch.equal(a.int(), b.int())
-                else:
-                    assert torch.equal(a.view(torch.int32),
-                                       b.view(torch.int32))
-            for a, b in zip(got[0], plain):
-                if mode == "ternary":
-                    assert torch.equal(a.int(), b.int())
-                    continue
-                if mode == "openness":
-                    a, b = a * cs._DEG_PER_SUM, b * cs._DEG_PER_SUM
-                assert not a.isnan().any()
-                inf = a.isinf()
-                assert torch.equal(inf, b.isinf())
-                tol = 5e-5 if mode == "openness" else 1e-6
-                assert float((a[~inf] - b[~inf]).abs().max()) <= tol
-    finally:
-        cs._ALLOW_TILE = saved
+    fns = (cs.openness_reduced_cuda, cs.openness_reduced_plan_cuda)
+    if plan:
+        fns = fns[::-1]
+    for mode, extra in REDUCED_VARIANTS.values():
+        kw = dict(cellsize=2.0, lookup_pixels=lookup, fast=fast, **extra)
+        plain = cs.openness_reduced_torch(Zd, mode, **kw)
+        got = []
+        for fn in fns:
+            if mode == "ternary":
+                out = (torch.full(shape, 0xFFFF, dtype=torch.int32,
+                                  device=card).to(torch.uint16),)
+            else:
+                out = tuple(torch.full(shape, float("nan"), device=card)
+                            for _ in range(len(plain)))
+            got.append(fn(Zd, mode, out=out, **kw))
+            torch.cuda.synchronize()
+        for a, b in zip(*got):
+            if mode == "ternary":
+                assert torch.equal(a.int(), b.int())
+            else:
+                assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        for a, b in zip(got[0], plain):
+            if mode == "ternary":
+                assert torch.equal(a.int(), b.int())
+                continue
+            if mode == "openness":
+                a, b = a * cs._DEG_PER_SUM, b * cs._DEG_PER_SUM
+            assert not a.isnan().any()
+            inf = a.isinf()
+            assert torch.equal(inf, b.isinf())
+            tol = 5e-5 if mode == "openness" else 1e-6
+            assert float((a[~inf] - b[~inf]).abs().max()) <= tol
