@@ -86,8 +86,8 @@ bound (operations at the f32 instruction rate or bytes at the HBM rate,
 whichever is larger; for K2 and K5/reduced the operations of the fold
 too, counted from the TPU kernel's body).
 
-Then the SMRF slice, which runs plain torch ops on the card and none of
-K1-K5 (each phase raises on failure):
+Then the SMRF slice, which runs plain torch ops on the card, none of
+K1-K5 and the spline's Thomas sweep TS (each phase raises on failure):
 
 - ``smrf_path``: ``smrf`` on a seeded 5M-point ``lidar_tile`` (2000 m x
   2000 m of UTM-like coordinates, rolling ground, ~10% box buildings,
@@ -95,10 +95,16 @@ K1-K5 (each phase raises on failure):
   the published thresholds: fast and exact labels agree on >= 99.9% of
   the points, >= 90% of building points are objects and >= 90% of bare
   ground is kept, ``chunk_points=1_999_999`` gives the one-shot labels
-  bit for bit; each stage timed with CUDA events (CG iterations and host
+  bit for bit; the fast and the exact call each launch TS exactly 6
+  times (two coefficient sets of three solves); each stage timed with
+  CUDA events (CG iterations and host
   syncs per fill), the host legs alone, and one ``torch.profiler`` pass
   (device idle share, launches; also of one K-cycle application and one
   spline coefficient set);
+- ``spline_sweep``: the spline's Thomas solve (``csrc/thomas_sweep.cu``)
+  at SMRF's 1999 x 2001 in float32 and float64: equal to its plain
+  version bit for bit, each timed with CUDA events in turns beside it,
+  with its bytes-once bound, and one whole coefficient set at 2001^2;
 - ``inpaint_scale``: ``inpaint_nans_by_springs`` at 4096^2 with a 30%
   contiguous hole, float32, within 1e-3 of the float64 fill at tol=1e-12;
 - ``smrf_oracle``: ``precision='exact'`` on the card bit-identical to the
@@ -1744,6 +1750,8 @@ def np_smrf(x, y, z, cellsize, windows, slope_threshold,
 
 SMRF_POINTS = 5_000_000        # bench.py bench_gridding's cloud: 5M points
 SMRF_SIDE = 2000.0             # over 2000 m x 2000 m; cellsize 1 -> ~2003^2
+SPLINE_SIDE = 2001             # the benchmark's SMRF DTM: 2001^2, 1999 unknowns
+SPLINE_SOLVES = 6              # Thomas solves a call: 2 coefficient sets x 3
 SMRF_CHUNK = 1_999_999         # the streamed point stage: 3 chunks
 # the published parameters bench.py's bench_smrf uses
 SMRF_KW = dict(cellsize=1, windows=18, slope_threshold=.15,
@@ -1837,6 +1845,7 @@ def smrf_path(ntt, cuda_scan, dev):
     torch.cuda.synchronize()
 
     reset_counts(cuda_scan)
+    spline._thomas_cuda.launches = 0
     t0 = time.perf_counter()
     Zpro, t, cells, pts = ntt.smrf(x, y, z, chunk_points=n, **kw)
     torch.cuda.synchronize()
@@ -1844,6 +1853,9 @@ def smrf_path(ntt, cuda_scan, dev):
     counts = read_counts(cuda_scan)
     check(not any(counts.values()),
           f"the SMRF path launched {counts}: it runs none of K1-K5")
+    counts["TS"] = spline._thomas_cuda.launches
+    check(counts["TS"] == SPLINE_SOLVES, f"the fast SMRF call launched the "
+          f"Thomas sweep {counts['TS']} times, not {SPLINE_SOLVES}")
 
     clock = StageClock()
     run_kw = dict(SMRF_KW, low_filter_slope=5, low_outlier_fill=False,
@@ -1854,11 +1866,15 @@ def smrf_path(ntt, cuda_scan, dev):
     check(torch.equal(staged[3], pts) and torch.equal(staged[2], cells),
           "the stage-timed fast call differs from the untimed one")
 
+    sweeps = spline._thomas_cuda.launches
     t0 = time.perf_counter()
     Zx, tx, cells_x, pts_x = ntt.smrf(x, y, z, chunk_points=n,
                                       precision="exact", **kw)
     torch.cuda.synchronize()
     wall_exact = time.perf_counter() - t0
+    sweeps = spline._thomas_cuda.launches - sweeps
+    check(sweeps == SPLINE_SOLVES, f"the exact SMRF call launched the "
+          f"Thomas sweep {sweeps} times, not {SPLINE_SOLVES}")
 
     streamed = ntt.smrf(x, y, z, chunk_points=SMRF_CHUNK, **kw)[3]
     check(torch.equal(streamed, pts),
@@ -1929,8 +1945,8 @@ def smrf_path(ntt, cuda_scan, dev):
     _, coeffs = device_profile(lambda: spline.spline_coefficients_2d(Zpro))
     emit(phase="smrf_path", points=n, grid=[ny, nx],
          empty_cell_share=empty_share, windows=SMRF_KW["windows"],
-         launches_by_kernel=counts, wall_s={"fast": wall_fast,
-                                            "exact": wall_exact},
+         launches_by_kernel=counts, exact_launches={"TS": sweeps},
+         wall_s={"fast": wall_fast, "exact": wall_exact},
          stages_fast=stages, host_legs=legs,
          profile_fast=prof, kcycle_levels=len(levels),
          kcycle_application=kcycle, spline_coefficient_set=coeffs,
@@ -1939,7 +1955,79 @@ def smrf_path(ntt, cuda_scan, dev):
          building_flagged={"fast": flagged, "exact": flagged_x},
          ground_kept={"fast": kept, "exact": kept_x},
          object_share=float(pts.double().mean()))
-    return (x, y, z), prof
+    return (x, y, z), prof, counts["TS"]
+
+
+def spline_sweep(dev, card):
+    """Phase 8b: the Thomas solve of the spline moments at SMRF's
+    1999 x 2001 (the 2001^2 DTM's rows, ``smrf_path``'s grid), float32
+    and float64: the kernel (``spline._thomas_cuda``, one launch) equal
+    to the plain version (``spline._thomas_eager``, two torch ops a row
+    forward and one back) bit for bit on the right-hand sides of Z, Z.T
+    and Mx; both timed with CUDA events in turns; the kernel's bound is
+    its bytes once (rhs read, x written) at the HBM rate.  Then one whole
+    coefficient set (three solves and their right-hand sides) at 2001^2,
+    as ``smrf`` runs two a call."""
+    from neilpy_tpu_torch.ops import spline
+
+    rhs_of = spline._notaknot_rhs  # what _notaknot_moments solves for
+    side = SPLINE_SIDE
+    Z64 = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(side, side)).cumsum(0).cumsum(1) * 0.01).to(dev)
+    out = {}
+    for dt in (torch.float32, torch.float64):
+        Z = Z64.to(dt)
+        rhs_z = rhs_of(Z)
+        err = 0.0
+        for rhs in (rhs_z, rhs_of(Z.T.contiguous()),
+                    rhs_of(spline.spline_coefficients_2d(Z)[1])):
+            got = spline._thomas_cuda(rhs)
+            want = spline._thomas_eager(rhs)
+            err = max(err, float((got - want).abs().max()))
+            check(torch.equal(got, want), f"thomas sweep {dt}: kernel and "
+                                          "plain version differ")
+        launches = spline._thomas_cuda.launches
+        times = time_turns({"plain": spline._thomas_eager,
+                            "kernel": spline._thomas_cuda},
+                           lambda fn: fn(rhs_z))
+        launched = spline._thomas_cuda.launches - launches
+        check(launched == TIMED_RUNS + 1,
+              f"thomas sweep {dt}: {launched} kernel launches timed")
+        coeffs = time_turns({"set": spline.spline_coefficients_2d},
+                            lambda fn: fn(Z))["set"]
+        m, W = rhs_z.shape
+        ms = statistics.median(times["kernel"])
+        bound_ms = 2 * m * W * rhs_z.element_size() / PEAK_HBM_BYTES * 1e3
+        out[str(dt).split(".")[-1]] = {
+            "shape": [m, W], "kernel_ms": ms, "kernel_runs_ms": times["kernel"],
+            "plain_ms": statistics.median(times["plain"]),
+            "plain_runs_ms": times["plain"], "bound_ms": bound_ms,
+            "bound_by": "bytes", "roofline_pct": 100 * bound_ms / ms,
+            "max_abs_diff": err, "coefficient_set_ms": statistics.median(
+                coeffs), "plain_launches": 3 * m - 2}
+    emit(phase="spline_sweep", card=card, library="none", **out)
+    return out
+
+
+def sweep_row(launches, sweep):
+    """The ``kernels`` line's row of the spline's Thomas sweep (TS): its
+    launches on the SMRF path (``smrf_path``'s one-shot fast call), its
+    largest error against the plain version over both dtypes, and from
+    ``spline_sweep`` at 1999 x 2001 its time, the plain version's and its
+    bound in float32, float64's under ``float64``.  It replaces no TPU
+    kernel (the JAX package's ``_thomas`` is a ``lax.scan``), and no
+    PyTorch call solves the system, so ``replaces`` and ``library_ms``
+    are null."""
+    def timed(s):
+        return {"ms": s["kernel_ms"], "plain_ms": s["plain_ms"],
+                "bound_ms": s["bound_ms"], "shape": s["shape"]}
+    f32, f64 = sweep["float32"], sweep["float64"]
+    return {"name": "thomas_sweep", "id": "TS", "route": "cuda",
+            "source": "neilpy_tpu_torch/csrc/thomas_sweep.cu",
+            "replaces": None, "launches": launches,
+            "max_abs_err": max(f32["max_abs_diff"], f64["max_abs_diff"]),
+            **timed(f32), "bound_by": "bytes", "library_ms": None,
+            "float64": timed(f64)}
 
 
 def inpaint_scale(ntt, dev):
@@ -3448,7 +3536,9 @@ def main():
                             cuda_scan, Zd).items()]:
         max_err[kid] = max(max_err[kid], err)
     res = phase("timings", timings, ntt, cuda_scan, Zd, mesh, card)
-    cloud, smrf_prof = phase("smrf_path", smrf_path, ntt, cuda_scan, dev)
+    cloud, smrf_prof, smrf_sweeps = phase("smrf_path", smrf_path, ntt,
+                                          cuda_scan, dev)
+    sweep = phase("spline_sweep", spline_sweep, dev, card)
     fills = phase("inpaint_scale", inpaint_scale, ntt, dev)
     phase("smrf_oracle", smrf_oracle, ntt, dev)
     with tempfile.TemporaryDirectory() as tmp:
@@ -3483,6 +3573,7 @@ def main():
                 "K4": sharded_counts["K4"]}
     kernels = kernel_table(cuda_scan, res, launches, max_err, Zd,
                            sharded_blocks(Zd, mesh))
+    kernels.append(sweep_row(smrf_sweeps, sweep))
     for k in kernels:
         if codec_counts.get(k["id"]):
             k["codec_path_launches"] = codec_counts[k["id"]]

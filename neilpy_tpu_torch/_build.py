@@ -130,8 +130,8 @@ def entry_argtypes():
     ll = ctypes.c_longlong
     f = ctypes.c_float
     hw = (ll, ll)
-    # every entry starts (Z, H, W, ladder, scales, K, Rmax, dense) and ends
-    # with the stream
+    # every ladder entry starts (Z, H, W, ladder, scales, K, Rmax, dense);
+    # every entry ends with the stream
     head = [p, *hw, p, p, i, i, i]
     plan = [ll, ll, i, ll, ll, i]  # rlo, rhi, rmasks, clo, chi, cmasks
     tile = [i] * 6  # halo, ty0, ty1, tx0, tx1, tma
@@ -151,6 +151,8 @@ def entry_argtypes():
         # (..., tile, plan, mode, neg_mode, T, out0, out1, code)
         "openness_reduced_plan_launch": [*head, *tile, *plan, i, i, f, p, p,
                                          p],
+        # the spline's Thomas solve: (rhs, x, factors, m, W, f64)
+        "thomas_sweep_launch": [p, p, p, ll, ll, i],
     }
     return {name: [*argtypes, p] for name, argtypes in entries.items()}
 

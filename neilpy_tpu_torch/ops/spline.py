@@ -15,11 +15,14 @@ not-a-knot ends, then the local cubic of each query's cell from 16
 gathered numbers.  The solve is the Thomas sweep, O(n) sequential steps
 each vectorised across the other axis; the bands are constants, so the
 forward factors depend only on the position and are computed once on
-the host, in the working dtype, and the device runs the right-hand
-side's sweep (a few launches a step); while a ``torch.profiler``
-profile is open each sweep is the span ``spline.thomas``, with its
-device time.  Out-of-domain queries are clamped to the boundary knots,
-as FITPACK's ``bispev`` does.
+the host, in the working dtype.  On a CUDA device one launch of the
+hand-written kernel ``csrc/thomas_sweep.cu`` runs the whole solve with
+those factors, uploaded once per (rows, dtype, device); on the CPU the
+plain version runs it in torch ops, a few a row.  While a
+``torch.profiler`` profile is open each solve is the span
+``spline.thomas``, with its device time and the path taken.
+Out-of-domain queries are clamped to the boundary knots, as FITPACK's
+``bispev`` does.
 
 Uniform spacing h=1 with data at ``offset + i`` (SMRF uses pixel
 centres 0.5, 1.5, ...).
@@ -32,7 +35,7 @@ import functools
 import numpy as np
 import torch
 
-from .. import profiling
+from .. import _build, profiling
 from ..core.device import float_tensor, to_device
 
 __all__ = ["spline_coefficients_2d", "spline_ev_2d", "interp_spline_2d"]
@@ -58,27 +61,95 @@ def _thomas_factors(m, dtype):
     return tuple(a), tuple(denom), tuple(cp)
 
 
-def _thomas(rhs):
-    """Solve the not-a-knot tridiagonal system along axis 0 of ``rhs``
-    (m rows, vectorised over the trailing axis): the forward sweep
-    dp[i] = (rhs[i] - a[i] dp[i-1]) / denom[i], then the back
-    substitution x[i] = dp[i] - cp[i] x[i+1]."""
+@functools.lru_cache(maxsize=16)
+def _device_factors(m, dtype, device):
+    """The factors of :func:`_thomas_cuda` for ``m`` unknowns as one
+    contiguous (3, m) tensor of ``dtype`` on ``device``, rows [a, inv, cp]
+    with inv = 1 / denom rounded on the host in ``dtype``, as PyTorch's
+    CUDA ``torch.div(t, python_float)`` rounds it: uploaded once per (m,
+    dtype, device), so no solve copies or waits."""
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    a, denom, cp = (np.array(v, dtype=np_dtype)
+                    for v in _thomas_factors(m, np_dtype))
+    rows = np.stack([a, np_dtype(1) / denom, cp])
+    return torch.from_numpy(rows).to(device)
+
+
+def _thomas_eager(rhs):
+    """The plain version of :func:`_thomas_cuda`, in torch ops on any
+    device: the forward sweep dp[i] = (rhs[i] - a[i] dp[i-1]) / denom[i],
+    then the back substitution x[i] = dp[i] - cp[i] x[i+1], a few ops a
+    row."""
     m = rhs.shape[0]
     a, denom, cp = _thomas_factors(
         m, np.float64 if rhs.dtype == torch.float64 else np.float32)
-    with profiling.span("spline.thomas", device=rhs.device):
-        dp = torch.empty_like(rhs)
-        prev = torch.zeros_like(rhs[0])
-        for i in range(m):
-            row = rhs[i] - prev if a[i] else rhs[i]
-            torch.div(row, float(denom[i]), out=dp[i])
-            prev = dp[i]
-        x = torch.empty_like(rhs)
-        nxt = torch.zeros_like(rhs[0])
-        for i in range(m - 1, -1, -1):
-            torch.sub(dp[i], nxt, alpha=float(cp[i]), out=x[i])
-            nxt = x[i]
+    dp = torch.empty_like(rhs)
+    prev = torch.zeros_like(rhs[0])
+    for i in range(m):
+        row = rhs[i] - prev if a[i] else rhs[i]
+        torch.div(row, float(denom[i]), out=dp[i])
+        prev = dp[i]
+    x = torch.empty_like(rhs)
+    nxt = torch.zeros_like(rhs[0])
+    for i in range(m - 1, -1, -1):
+        torch.sub(dp[i], nxt, alpha=float(cp[i]), out=x[i])
+        nxt = x[i]
     return x
+
+
+def _thomas_cuda(rhs):
+    """:func:`_thomas_eager` as one launch of the hand-written kernel
+    ``csrc/thomas_sweep.cu``, equal to it bit for bit on the card.
+    ``rhs`` must be a contiguous float32 or float64 CUDA tensor of shape
+    (m, ...), its trailing shape taken as W columns; anything else
+    raises.  Launches on the current stream and does not synchronise;
+    ``_thomas_cuda.launches`` counts the launches of this process."""
+    if not rhs.is_cuda:
+        raise ValueError("_thomas_cuda needs a CUDA tensor, got one on "
+                         f"{rhs.device}; use _thomas_eager on the CPU")
+    if rhs.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"_thomas_cuda takes float32 or float64, not "
+                         f"{rhs.dtype}")
+    if rhs.dim() < 1 or not rhs.is_contiguous():
+        raise ValueError("_thomas_cuda needs a contiguous (m, ...) tensor")
+    x = torch.empty_like(rhs)
+    if rhs.numel() == 0:
+        return x
+    m = rhs.shape[0]
+    factors = _device_factors(m, rhs.dtype, rhs.device)
+    lib = _build.load()
+    with torch.cuda.device(rhs.device):
+        stream = torch.cuda.current_stream(rhs.device).cuda_stream
+        err = lib.thomas_sweep_launch(
+            rhs.data_ptr(), x.data_ptr(), factors.data_ptr(), m,
+            rhs.numel() // m, int(rhs.dtype == torch.float64), stream)
+    if err != 0:
+        raise RuntimeError(f"thomas_sweep_launch failed: CUDA error {err}")
+    _thomas_cuda.launches += 1
+    return x
+
+
+_thomas_cuda.launches = 0
+
+
+def _thomas(rhs):
+    """Solve the not-a-knot tridiagonal system along axis 0 of ``rhs``
+    (m rows, vectorised over the trailing axes): the kernel
+    (:func:`_thomas_cuda`) for a CUDA tensor, the plain version
+    (:func:`_thomas_eager`) for any other.  While a profile is open the
+    solve is the span ``spline.thomas``, its ``attr`` the path taken."""
+    cuda = rhs.is_cuda
+    with profiling.span("spline.thomas", device=rhs.device,
+                        attr={"path": "cuda" if cuda else "eager"}):
+        return _thomas_cuda(rhs) if cuda else _thomas_eager(rhs)
+
+
+def _notaknot_rhs(Y):
+    """The right-hand side of the not-a-knot moments' system along axis
+    0 of ``Y`` (n rows, n >= 4), n - 2 rows: d[1], 6 d[2], ..., 6 d[n-3],
+    d[n-2], with d[i] = y[i-1] - 2 y[i] + y[i+1]."""
+    d = Y[:-2] - 2.0 * Y[1:-1] + Y[2:]          # d[i] for i = 1..n-2
+    return torch.cat([d[:1], 6.0 * d[1:-1], d[-1:]], dim=0)
 
 
 def _notaknot_moments(Y):
@@ -96,11 +167,8 @@ def _notaknot_moments(Y):
     if n < 4:
         raise ValueError("need at least 4 samples per axis for a cubic "
                          "spline")
-    d = Y[:-2] - 2.0 * Y[1:-1] + Y[2:]          # d[i] for i = 1..n-2
-    if n == 4:
-        inner = d
-    else:
-        inner = _thomas(torch.cat([d[:1], 6.0 * d[1:-1], d[-1:]], dim=0))
+    rhs = _notaknot_rhs(Y)                      # d itself at n = 4
+    inner = rhs if n == 4 else _thomas(rhs)
     M0 = 2.0 * inner[0] - inner[1]
     Mn = 2.0 * inner[-1] - inner[-2]
     return torch.cat([M0[None], inner, Mn[None]], dim=0)

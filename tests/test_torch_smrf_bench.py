@@ -439,8 +439,10 @@ BEFORE = {"configs": (2, "4e291c418ab444b6"),
 NEW_METRICS = ["device.idle_pct.smrf", "smrf.launches_per_job",
                "smrf.fill_ms_per_call", "inpaint.cg_iters_per_fill",
                "smrf.ladder_ms_per_call", "smrf.host_pct"]
-# appended after the cell's own: the springs fill's CUDA graph replays
-LATER_METRICS = ["inpaint.graph_replay_pct"]
+# appended after the cell's own: the springs fill's CUDA graph replays,
+# then the spline coefficients' device time and kernel share
+LATER_METRICS = ["inpaint.graph_replay_pct", "smrf.spline_ms_per_call",
+                 "spline.kernel_sweep_pct"]
 
 
 def _digest(x):
