@@ -29,6 +29,7 @@ engine tolerances (PERF.md).
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import numpy as np
@@ -40,9 +41,9 @@ from ..core.codes import (geomorphon_cmap, jasiewicz_stepinski_table,
 from ..core.device import to_device
 from ..io.png import write_paletted_png
 from ..io.worldfile import write_worldfile
-from .cuda_scan import (_HALF_PI, _threshold_tangent, directional_extrema,
-                        openness_counts, openness_degrees, openness_reduced,
-                        skyview_from_sum)
+from .cuda_scan import (_HALF_PI, _resolve_specialize, _threshold_tangent,
+                        directional_extrema, openness_counts,
+                        openness_degrees, openness_reduced, skyview_from_sum)
 
 __all__ = ["openness", "openness_pair", "skyview_factor", "svf_from_extrema",
            "count_openness", "classes_from_counts", "geomorphons",
@@ -136,24 +137,52 @@ def openness_pair(Z, cellsize=1, lookup_pixels=1, fast=False, how_fast=20,
     the JAX package picks its route: True K5's static region plan, False
     K2's dynamic route, None the plan for the exact ladder and K2 for
     ``fast``.  The outputs are bit-identical either way; on the CPU the
-    plain version runs and ``specialize`` changes nothing."""
-    return openness_degrees(*openness_reduced(
-        as_raster(Z, device), "openness", cellsize=float(cellsize),
-        lookup_pixels=int(lookup_pixels), fast=bool(fast),
-        how_fast=int(how_fast), engine=engine, specialize=specialize))
+    plain version runs and ``specialize`` changes nothing.  While a
+    ``torch.profiler`` profile is open the call is the span
+    ``visibility.openness_pair`` (:func:`_reduced_span`)."""
+    with _reduced_span("visibility.openness_pair", Z, device, engine,
+                       specialize, fast) as Z:
+        return openness_degrees(*openness_reduced(
+            Z, "openness", cellsize=float(cellsize),
+            lookup_pixels=int(lookup_pixels), fast=bool(fast),
+            how_fast=int(how_fast), engine=engine, specialize=specialize))
 
 
 def skyview_factor(Z, cellsize=1, lookup_pixels=1, engine="auto",
                    device=None):
     """Skyview factor: 1 - mean_d sin(atan(max(mx_d, 0)))
     (neilpy.py:1360-1384), with sin(atan(t)) = t/sqrt(1+t^2), from the
-    fused reduction (K2).  The max over the ladder's valid steps equals
-    the reference loop's frozen-exit-elevation quirk (see the JAX
-    package's docstring)."""
-    (s,) = openness_reduced(
-        as_raster(Z, device), "svf", cellsize=float(cellsize),
-        lookup_pixels=int(lookup_pixels), engine=engine)
-    return skyview_from_sum(s)
+    fused reduction (K2; K5's static plan of it, the ladder being exact).
+    The max over the ladder's valid steps equals the reference loop's
+    frozen-exit-elevation quirk (see the JAX package's docstring).  While
+    a ``torch.profiler`` profile is open the call is the span
+    ``visibility.skyview_factor`` (:func:`_reduced_span`)."""
+    with _reduced_span("visibility.skyview_factor", Z, device, engine,
+                       None, False) as Z:
+        (s,) = openness_reduced(
+            Z, "svf", cellsize=float(cellsize),
+            lookup_pixels=int(lookup_pixels), engine=engine)
+        return skyview_from_sum(s)
+
+
+@contextlib.contextmanager
+def _reduced_span(name, Z, device, engine, specialize, fast):
+    """Yield ``as_raster(Z, device)`` inside the root span ``name`` of a
+    fused-reduction call, with the child ``visibility.as_raster``; the
+    root's ``attr`` is the route the call takes: ``'plan'`` (K5),
+    ``'dynamic'`` (K2) or ``'torch'`` (the plain version).  Its launch's
+    ``cuda_scan.launch`` span sits under it."""
+    with profiling.span(name) as call:
+        with profiling.span("visibility.as_raster"):
+            Z = as_raster(Z, device)
+        if call is not None:
+            if engine == "torch" or (engine == "auto" and not Z.is_cuda):
+                call.attr = "torch"
+            else:
+                call.attr = ("plan" if _resolve_specialize(specialize, False,
+                                                           fast)
+                             else "dynamic")
+        yield Z
 
 
 def svf_from_extrema(mx):

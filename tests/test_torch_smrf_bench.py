@@ -454,7 +454,11 @@ def _digest(x):
 def test_entries_that_were_there_are_unchanged_but_two_appended_names(kind):
     n, digest = BEFORE[kind]
     old = json.loads(json.dumps(MAN[kind][:n]))
+    # cells added after this one may be appended to a metric's list
+    later = {w["name"] for w in MAN["workloads"][5:]}
     for m in old:
+        if "workloads" in m:
+            m["workloads"] = [w for w in m["workloads"] if w not in later]
         if m["name"] in ("raster_mpix_s.host", "job_p95_ms.host"):
             assert m["workloads"][-1] == CELL
             m["workloads"].pop()
@@ -462,14 +466,14 @@ def test_entries_that_were_there_are_unchanged_but_two_appended_names(kind):
 
 
 def test_the_new_entries():
-    (cfg,) = MAN["configs"][2:]
+    (cfg,) = MAN["configs"][2:3]
     assert cfg["name"] == "smrf_isprs" and cfg["reduced"] == []
     assert cfg["file"] == "portbench/configs/smrf_isprs.json"
     assert cfg["source"] == CFG["source"] and len(cfg["source"]) <= 200
-    (cell,) = MAN["workloads"][4:]
+    (cell,) = MAN["workloads"][4:5]
     assert (cell["name"], cell["config"], cell["traffic"], cell["chips"]) \
         == (CELL, "smrf_isprs", "tile5m", 1)
-    new = MAN["per_layer"][14:]
+    new = MAN["per_layer"][14:23]
     assert [m["name"] for m in new] == NEW_METRICS + LATER_METRICS
     for m in new:
         assert m["workloads"] == [CELL]

@@ -7,9 +7,11 @@ caller's, the producer's and the writer's threads under one root, each
 ``tiling.*`` span timing the interval of the ``phase_stats`` key it
 echoes, on the clock of the profiler's own events; ``profiling.trace``
 writes every thread's spans; the moments span names the path it took;
-each ``portbench/metrics`` reader of them gives its value on a
+``openness_pair`` and ``skyview_factor`` are root spans naming their
+route; each ``portbench/metrics`` reader of them gives its value on a
 hand-built record.  No JAX here: the ``cuda`` cases (the launch span's
-C entry and device time, the moments pass on the card) run on a card
+C entry and device time, under ``geomorphons`` and under the fused
+reductions' roots, the moments pass on the card) run on a card
 with ``python3 -m pytest --noconftest -p no:cacheprovider
 tests/test_torch_spans.py -m cuda``."""
 
@@ -136,6 +138,57 @@ def test_the_moments_span_names_the_path_taken(tmp_path, path):
     (moments,) = [s for s in profiling.spans()
                   if s.name == "mosaic.moments"]
     assert moments.attr == path
+
+
+# the fused reductions' public calls and their root spans
+REDUCED = {"openness_pair": "visibility.openness_pair",
+           "skyview_factor": "visibility.skyview_factor"}
+
+
+@pytest.mark.parametrize("fn", sorted(REDUCED))
+def test_a_fused_reduction_call_is_a_root_naming_its_route(fn):
+    call_fn = getattr(ntt, fn)
+    kw = dict(cellsize=10, lookup_pixels=8, device="cpu")
+    profiling.clear_spans()
+    call_fn(dem(64), **kw)
+    assert profiling.spans() == []
+    with cpu_profile():
+        call_fn(dem(64), **kw)
+    spans = profiling.spans()
+    (call,) = [s for s in spans if s.parent is None]
+    assert call.name == REDUCED[fn] and call.attr == "torch"
+    (child,) = [s for s in spans if s is not call]
+    assert child.name == "visibility.as_raster"
+    assert child.parent == child.root == call.id
+    assert call.start_ns <= child.start_ns <= child.end_ns <= call.end_ns
+
+
+@pytest.mark.parametrize("fn, kw, route", [
+    ("openness_pair", {}, "plan"),
+    ("openness_pair", {"fast": True}, "dynamic"),
+    ("openness_pair", {"fast": True, "specialize": True}, "plan"),
+    ("openness_pair", {"specialize": False}, "dynamic"),
+    ("skyview_factor", {}, "plan")])
+def test_the_root_names_the_route_a_card_takes(fn, kw, route):
+    """``engine='cuda'`` on a CPU tensor: the root records the kernel's
+    route, then the kernel refuses the tensor."""
+    profiling.clear_spans()
+    with cpu_profile():
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            getattr(ntt, fn)(dem(32), 10, 4, engine="cuda", device="cpu",
+                             **kw)
+    (call,) = [s for s in profiling.spans() if s.name == REDUCED[fn]]
+    assert call.parent is None and call.attr == route
+
+
+def test_openness_nests_the_pairs_span_in_its_caller():
+    profiling.clear_spans()
+    with cpu_profile():
+        with profiling.span("caller") as caller:
+            ntt.openness(dem(32), 10, 4, device="cpu")
+    (pair,) = [s for s in profiling.spans()
+               if s.name == "visibility.openness_pair"]
+    assert pair.parent == pair.root == caller.id and pair.attr == "torch"
 
 
 @pytest.mark.parametrize("key", sorted(ECHO))
@@ -340,6 +393,29 @@ def test_launch_span_names_its_entry_and_times_the_device(cuda_device, fast,
                   if s.name == "visibility.classes_from_counts"]
     assert launch.attr == entry and launch.root == call.id
     assert launch.device_ms > 0 and classes.device_ms > 0
+    assert call.start_ns <= launch.start_ns <= launch.end_ns <= call.end_ns
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn", sorted(REDUCED))
+def test_a_fused_reduction_launch_sits_under_its_root(cuda_device, fn):
+    Z = torch.from_numpy(dem(1024)).to(cuda_device)
+    kw = dict(cellsize=10, lookup_pixels=50)
+    getattr(ntt, fn)(Z, **kw)
+    torch.cuda.synchronize()
+    profiling.clear_spans()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]):
+        getattr(ntt, fn)(Z, **kw)
+        torch.cuda.synchronize()
+    spans = profiling.spans()
+    (call,) = [s for s in spans if s.name == REDUCED[fn]]
+    (launch,) = [s for s in spans if s.name == "cuda_scan.launch"]
+    assert call.parent is None and call.attr == "plan"
+    assert launch.attr == "openness_reduced_plan_launch"
+    assert launch.parent == launch.root == call.id
+    assert launch.device_ms > 0
     assert call.start_ns <= launch.start_ns <= launch.end_ns <= call.end_ns
 
 
