@@ -96,7 +96,9 @@ K1-K5 and the spline's Thomas sweep TS (each phase raises on failure):
   the points, >= 90% of building points are objects and >= 90% of bare
   ground is kept, ``chunk_points=1_999_999`` gives the one-shot labels
   bit for bit; the fast and the exact call each launch TS exactly 6
-  times (two coefficient sets of three solves); each stage timed with
+  times (two coefficient sets of three solves), and the fast call's two
+  fills launch the K-cycle kernels (MG, counted by name in the profiler
+  pass) as many times as their applications take; each stage timed with
   CUDA events (CG iterations and host
   syncs per fill), the host legs alone, and one ``torch.profiler`` pass
   (device idle share, launches; also of one K-cycle application and one
@@ -107,6 +109,11 @@ K1-K5 and the spline's Thomas sweep TS (each phase raises on failure):
   with its bytes-once bound, and one whole coefficient set at 2001^2;
 - ``inpaint_scale``: ``inpaint_nans_by_springs`` at 4096^2 with a 30%
   contiguous hole, float32, within 1e-3 of the float64 fill at tol=1e-12;
+- ``kcycle_kernel``: the springs fill's K-cycle (``csrc/
+  multigrid_kcycle.cu``) on SMRF's 2001^2 mask in float32 and float64:
+  within 1e-4 / 1e-12 of max |plain version|, each timed with CUDA events
+  in turns beside it, launches per application, its bytes-once bound, one
+  replayed fill of the mask;
 - ``smrf_oracle``: ``precision='exact'`` on the card bit-identical to the
   script's own f64 scipy oracle (a copy of ``tests/reference_impls.py``'s
   on the port's ``disk`` and ``bin_points``) on tests/test_smrf.py's
@@ -159,7 +166,8 @@ for the classes and K2 for the openness pair, dynamic route):
   0, both calls' stages on CUDA events (CG iterations per fill), one
   profiler pass; ``sharded_progressive_filter`` bit for bit at 2001^2;
   ``sharded_springs_fill`` on inpaint_scale's 4096^2 raster within 1e-3
-  of the float64 fill;
+  of the float64 fill and of the single float32 one (its hand-off's
+  K-cycle the kernels);
 - ``mosaic_path``: ``tools/demo_mosaic_torch.py`` (config 5's run at
   full extent) as subprocesses at 32768^2 (a smaller side where the disk
   is short, the cut in the line): the JAX demo's DEM in an ``np.memmap``,
@@ -193,6 +201,7 @@ exits non-zero without that line; so does a machine with no CUDA device.
 import contextlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -1752,6 +1761,12 @@ SMRF_POINTS = 5_000_000        # bench.py bench_gridding's cloud: 5M points
 SMRF_SIDE = 2000.0             # over 2000 m x 2000 m; cellsize 1 -> ~2003^2
 SPLINE_SIDE = 2001             # the benchmark's SMRF DTM: 2001^2, 1999 unknowns
 SPLINE_SOLVES = 6              # Thomas solves a call: 2 coefficient sets x 3
+# csrc/multigrid_kcycle.cu's kernels by name, demangled or mangled (they
+# live in an anonymous namespace), and its one-block tail alone
+_MG_NAMES = "smooth|restrict|dot|matvec_dot|fcg_update|fcg_direction|tail"
+MG_KERNELS = {
+    "MG": re.compile(rf"(?:::|_GLOBAL__N_1\d+)(?:{_MG_NAMES})_kernel[<I]"),
+    "MG tail": re.compile(r"(?:::|_GLOBAL__N_1\d+)tail_kernel[<I]")}
 SMRF_CHUNK = 1_999_999         # the streamed point stage: 3 chunks
 # the published parameters bench.py's bench_smrf uses
 SMRF_KW = dict(cellsize=1, windows=18, slope_threshold=.15,
@@ -1783,12 +1798,14 @@ class StageClock:
                 in zip(self.marks, self.marks[1:])}
 
 
-def device_profile(call):
+def device_profile(call, kernels=None):
     """One ``torch.profiler`` pass (CUDA activity) of ``call``: host-clock
     wall ms (ending in a synchronise), device ms (the union of the
     kernels', copies' and fills' spans), idle share, kernel launches and
-    copies.  The profiler's first window in a process carries its start-
-    up, so a small window runs first."""
+    copies, and, for each name of the dict ``kernels``, the launches of
+    the kernels whose names its regular expression finds
+    (``launches_by_name``).  The profiler's first window in a process
+    carries its start-up, so a small window runs first."""
     acts = [torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts):
@@ -1799,12 +1816,15 @@ def device_profile(call):
         out = call()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    spans, kernels = [], 0
+    spans, launches = [], 0
+    by_name = dict.fromkeys(kernels or (), 0)
     for e in prof.profiler.kineto_results.events():
         if e.device_type() != torch.autograd.DeviceType.CUDA:
             continue
         spans.append((e.start_ns(), e.start_ns() + e.duration_ns()))
-        kernels += not e.name().startswith(("Memcpy", "Memset"))
+        launches += not e.name().startswith(("Memcpy", "Memset"))
+        for k in by_name:
+            by_name[k] += bool(kernels[k].search(e.name()))
     busy, end = 0, None
     for a, b in sorted(spans):
         if end is None or a > end:
@@ -1812,8 +1832,22 @@ def device_profile(call):
         elif b > end:
             busy, end = busy + b - end, b
     return out, dict(wall_ms=wall, device_ms=busy / 1e6,
-                     idle_share=1.0 - busy / 1e6 / wall, launches=kernels,
-                     copies_and_fills=len(spans) - kernels)
+                     idle_share=1.0 - busy / 1e6 / wall, launches=launches,
+                     copies_and_fills=len(spans) - launches,
+                     **({"launches_by_name": by_name} if kernels else {}))
+
+
+def most_launches(call, first, passes=3):
+    """The launches of ``call`` by ``MG_KERNELS``' names (and ``all``), the
+    most over ``passes`` profiler passes, the first of them ``first`` (a
+    ``device_profile`` of it), with each pass's counts.  A pass now and
+    then loses records and never adds any: on the card a pass of one
+    K-cycle application read 0 and another 78 of its 85 launches."""
+    seen = [first]
+    while len(seen) < passes:
+        seen.append(device_profile(call, MG_KERNELS)[1])
+    seen = [dict(p["launches_by_name"], all=p["launches"]) for p in seen]
+    return {k: max(p[k] for p in seen) for k in seen[0]}, seen
 
 
 def smrf_labels_check(pts, building, canopy, what):
@@ -1865,6 +1899,10 @@ def smrf_path(ntt, cuda_scan, dev):
     stages = clock.stages()
     check(torch.equal(staged[3], pts) and torch.equal(staged[2], cells),
           "the stage-timed fast call differs from the untimed one")
+    fills = [v for k, v in stages.items() if k.startswith("springs_fill")]
+    check(len(fills) == 2, f"the fast call ran {len(fills)} fills, not 2")
+    # K-cycle applications a call: a CG start and one an iteration a fill
+    applications = sum(1 + f["iterations"] for f in fills)
 
     sweeps = spline._thomas_cuda.launches
     t0 = time.perf_counter()
@@ -1934,18 +1972,40 @@ def smrf_path(ntt, cuda_scan, dev):
     del dev_in, dev_pts, grid
 
     # one torch.profiler pass of the fast call, and the launches of one
-    # preconditioner application and one spline coefficient set
-    _, prof = device_profile(lambda: ntt.smrf(x, y, z, chunk_points=n, **kw))
+    # preconditioner application and one spline coefficient set; the
+    # K-cycle kernels' launches (MG) counted by name in both: every launch
+    # of an application is theirs, and the call's fills launch them once an
+    # application
+    def fast():
+        return ntt.smrf(x, y, z, chunk_points=n, **kw)
+
+    _, prof = device_profile(fast, MG_KERNELS)
     unknown = torch.isnan(pointgrid.create_dem(
         x, y, z, cellsize=1, bin_type="min", device=dev)[0]).float()
     levels = inpaint._build_levels(unknown, inpaint._degree(
         unknown.shape, device=dev))
     r = torch.randn(unknown.shape, device=dev) * unknown
-    _, kcycle = device_profile(lambda: inpaint._kcycle(r, levels, 0))
+
+    def apply():
+        return inpaint._kcycle(r, levels, 0)
+
+    _, kcycle = device_profile(apply, MG_KERNELS)
     _, coeffs = device_profile(lambda: spline.spline_coefficients_2d(Zpro))
+    per_app, app_passes = most_launches(apply, kcycle)
+    mg, fast_passes = most_launches(fast, prof)
+    check(per_app["MG tail"] > 0 and per_app["MG"] == per_app["all"],
+          f"one K-cycle application's profiler passes read {app_passes}")
+    check(mg["MG tail"] > 0 and mg["MG"] == per_app["MG"] * applications
+          and mg["MG tail"] == per_app["MG tail"] * applications,
+          f"the fast call's profiler passes read the K-cycle kernels "
+          f"{fast_passes}, not {per_app} for each of its {applications} "
+          "applications")
+    counts["MG"] = mg["MG"]
     emit(phase="smrf_path", points=n, grid=[ny, nx],
          empty_cell_share=empty_share, windows=SMRF_KW["windows"],
          launches_by_kernel=counts, exact_launches={"TS": sweeps},
+         kcycle_applications=applications,
+         mg_passes={"fast": fast_passes, "application": app_passes},
          wall_s={"fast": wall_fast, "exact": wall_exact},
          stages_fast=stages, host_legs=legs,
          profile_fast=prof, kcycle_levels=len(levels),
@@ -1955,7 +2015,7 @@ def smrf_path(ntt, cuda_scan, dev):
          building_flagged={"fast": flagged, "exact": flagged_x},
          ground_kept={"fast": kept, "exact": kept_x},
          object_share=float(pts.double().mean()))
-    return (x, y, z), prof, counts["TS"]
+    return (x, y, z), prof, counts
 
 
 def spline_sweep(dev, card):
@@ -2064,6 +2124,110 @@ def inpaint_scale(ntt, dev):
          f32=runs["f32"][1], f64_tol_1e12=runs["f64"][1],
          max_abs_diff_f32_vs_f64=err)
     return Zd, runs["f32"][0], runs["f64"][0]
+
+
+# one K-cycle application against the plain version, of max |plain|
+# (tests/test_torch_inpaint_kcycle_cuda.py: APPLY_RTOL)
+KCYCLE_RTOL = {torch.float32: 1e-4, torch.float64: 1e-12}
+FILL_TOL = {torch.float32: 1e-7, torch.float64: 1e-12}  # fast, exact SMRF
+
+
+def kcycle_kernel(dev, card, cloud):
+    """Phase 9b: one K-cycle application on SMRF's 2001^2 mask
+    (``smrf_path``'s cloud, cellsize 1, the minimum grid's empty cells),
+    float32 and float64: the kernels (``inpaint._kcycle_cuda``,
+    ``csrc/multigrid_kcycle.cu``) against the plain version
+    (``inpaint._kcycle_torch``) within the tests' tolerance; both timed
+    with CUDA events in turns (median of ``TIMED_RUNS``), the launches of
+    each from one profiler pass; the bound is the bytes once (every
+    level's diag, E, S and u and r read, z written) at the HBM rate.  Then
+    the multigrid fill of that grid through the graphs (CUDA events around
+    a replayed fill, at SMRF's tolerances)."""
+    from neilpy_tpu_torch.ops import inpaint, pointgrid
+    x, y, z = cloud
+    Zmin = pointgrid.create_dem(x, y, z, cellsize=1, bin_type="min",
+                                device=dev)[0]
+    out = {}
+    for dt in (torch.float32, torch.float64):
+        unknown = torch.isnan(Zmin).to(dt)
+        levels = inpaint._build_levels(unknown, inpaint._degree(
+            unknown.shape, dtype=dt, device=dev))
+        r = torch.from_numpy(np.random.default_rng(12).normal(
+            size=unknown.shape)).to(dev, dt) * unknown
+        shapes = [tuple(lv[3].shape) for lv in levels]
+        got = inpaint._kcycle_cuda(r, levels)
+        want = inpaint._kcycle_torch(r, levels, 0)
+        rel = float((got - want).abs().max() / want.abs().max())
+        check(rel <= KCYCLE_RTOL[dt], f"K-cycle {dt}: kernels vs plain "
+              f"version {rel:.3g} of max |plain|, above {KCYCLE_RTOL[dt]}")
+        apps = inpaint._kcycle_cuda.launches
+        times = time_turns(
+            {"plain": lambda: inpaint._kcycle_torch(r, levels, 0),
+             "kernel": lambda: inpaint._kcycle_cuda(r, levels)},
+            lambda fn: fn())
+        apps = inpaint._kcycle_cuda.launches - apps
+        check(apps == TIMED_RUNS + 1,
+              f"K-cycle {dt}: {apps} kernel applications timed")
+        def kernel():
+            return inpaint._kcycle_cuda(r, levels)
+
+        _, kernel_prof = device_profile(kernel, MG_KERNELS)
+        kernel_launches = most_launches(kernel, kernel_prof)[0]["all"]
+        _, plain_prof = device_profile(
+            lambda: inpaint._kcycle_torch(r, levels, 0))
+        nbytes = (4 * sum(h * w for h, w in shapes) + 2 * r.numel()) \
+            * r.element_size()
+        bound_ms = nbytes / PEAK_HBM_BYTES * 1e3
+        ms = statistics.median(times["kernel"])
+        A = Zmin.to(dt)
+        inpaint._springs_core(A, FILL_TOL[dt], 100_000)
+        start, stop = (torch.cuda.Event(enable_timing=True)
+                       for _ in range(2))
+        start.record()
+        filled, info = inpaint._springs_core(A, FILL_TOL[dt], 100_000)
+        stop.record()
+        stop.synchronize()
+        check(info["kcycle"] == "cuda" and info["graph"] == "replayed"
+              and bool(torch.isfinite(filled).all()),
+              f"the {dt} fill: {info}, or a non-finite cell")
+        out[str(dt).split(".")[-1]] = {
+            "shape": list(unknown.shape), "levels": shapes,
+            "tail": inpaint._kcycle_plan(shapes, r.element_size(), 2,
+                                         inpaint._smem_optin(r.device)),
+            "empty_share": float(unknown.mean()), "kernel_ms": ms,
+            "kernel_runs_ms": times["kernel"],
+            "plain_ms": statistics.median(times["plain"]),
+            "plain_runs_ms": times["plain"], "bound_ms": bound_ms,
+            "bound_by": "bytes", "roofline_pct": 100 * bound_ms / ms,
+            "kernel_launches": kernel_launches,
+            "plain_launches": plain_prof["launches"],
+            "kernel_profile": kernel_prof, "rel_err": rel,
+            "fill": dict(info, ms=start.elapsed_time(stop))}
+
+    emit(phase="kcycle_kernel", card=card, library="none", **out)
+    return out
+
+
+def kcycle_row(launches, kc):
+    """The ``kernels`` line's row of the springs fill's K-cycle (MG): its
+    kernels' launches on the SMRF path (``smrf_path``'s profiled fast
+    call, counted by name, replayed in the graphs), its
+    largest relative error against the plain version over both dtypes, and
+    from ``kcycle_kernel`` at SMRF's 2001^2 mask its time, launches, the
+    plain version's and its bound in float32, float64's under ``float64``.
+    It replaces no TPU kernel and no PyTorch call computes it, so
+    ``replaces`` and ``library_ms`` are null."""
+    def timed(s):
+        return {"ms": s["kernel_ms"], "plain_ms": s["plain_ms"],
+                "bound_ms": s["bound_ms"], "shape": s["shape"],
+                "launches_per_application": s["kernel_launches"]}
+    f32, f64 = kc["float32"], kc["float64"]
+    return {"name": "multigrid_kcycle", "id": "MG", "route": "cuda",
+            "source": "neilpy_tpu_torch/csrc/multigrid_kcycle.cu",
+            "replaces": None, "launches": launches,
+            "max_rel_err": max(f32["rel_err"], f64["rel_err"]),
+            **timed(f32), "bound_by": "bytes", "library_ms": None,
+            "float64": timed(f64)}
 
 
 def smrf_oracle(ntt, dev):
@@ -3048,7 +3212,8 @@ def sharded_smrf_path(ntt, cuda_scan, dev, cloud, single_prof, fills):
     single call's is smrf_path's).  Then ``sharded_progressive_filter`` bit
     for bit ``progressive_filter`` on the filled 2001^2 surface, windows
     1-18, and ``sharded_springs_fill`` on inpaint_scale's 4096^2 holed
-    raster within 1e-3 of the float64 fill, as the single f32 fill is."""
+    raster within 1e-3 of the float64 fill, as the single f32 fill is, and
+    of that single fill."""
     from neilpy_tpu_torch.dist.smrf import _sharded_fill, _sharded_smrf_run
     from neilpy_tpu_torch.ops import inpaint, pointgrid
     from neilpy_tpu_torch.pipelines.smrf import _smrf_run
@@ -3109,12 +3274,13 @@ def sharded_smrf_path(ntt, cuda_scan, dev, cloud, single_prof, fills):
     stop.record()
     stop.synchronize()
     fill_err = float((sfill.double() - f64).abs().max())
+    single_err = float((sfill - f32).abs().max())
     known = ~torch.isnan(Zh)
     check(torch.equal(sfill[known], Zh[known]),
           "the sharded fill changed a known cell")
-    check(fill_err <= SHARDED_FILL_TOL,
-          f"sharded fill vs the f64 fill: max |diff| {fill_err} above "
-          f"{SHARDED_FILL_TOL}")
+    check(max(fill_err, single_err) <= SHARDED_FILL_TOL,
+          f"sharded fill: max |diff| {fill_err} vs the f64 fill, "
+          f"{single_err} vs the single f32 one, above {SHARDED_FILL_TOL}")
     emit(phase="sharded_smrf_path", mesh=[2, 2], points=n,
          grid=list(Zp.shape), windows=SMRF_KW["windows"],
          launches_by_kernel=counts,
@@ -3128,7 +3294,7 @@ def sharded_smrf_path(ntt, cuda_scan, dev, cloud, single_prof, fills):
          springs_fill_4096=dict(
              ms=start.elapsed_time(stop), **info,
              max_abs_diff_vs_f64=fill_err,
-             max_abs_diff_vs_single_f32=float((sfill - f32).abs().max())))
+             max_abs_diff_vs_single_f32=single_err))
 
 
 def demo_tool():
@@ -3536,10 +3702,11 @@ def main():
                             cuda_scan, Zd).items()]:
         max_err[kid] = max(max_err[kid], err)
     res = phase("timings", timings, ntt, cuda_scan, Zd, mesh, card)
-    cloud, smrf_prof, smrf_sweeps = phase("smrf_path", smrf_path, ntt,
+    cloud, smrf_prof, smrf_counts = phase("smrf_path", smrf_path, ntt,
                                           cuda_scan, dev)
     sweep = phase("spline_sweep", spline_sweep, dev, card)
     fills = phase("inpaint_scale", inpaint_scale, ntt, dev)
+    kcycle = phase("kcycle_kernel", kcycle_kernel, dev, card, cloud)
     phase("smrf_oracle", smrf_oracle, ntt, dev)
     with tempfile.TemporaryDirectory() as tmp:
         phase("las_path", las_path, ntt, dev, tmp, cloud)
@@ -3573,7 +3740,8 @@ def main():
                 "K4": sharded_counts["K4"]}
     kernels = kernel_table(cuda_scan, res, launches, max_err, Zd,
                            sharded_blocks(Zd, mesh))
-    kernels.append(sweep_row(smrf_sweeps, sweep))
+    kernels.append(sweep_row(smrf_counts["TS"], sweep))
+    kernels.append(kcycle_row(smrf_counts["MG"], kcycle))
     for k in kernels:
         if codec_counts.get(k["id"]):
             k["codec_path_launches"] = codec_counts[k["id"]]

@@ -129,6 +129,9 @@ def entry_argtypes():
     i = ctypes.c_int
     ll = ctypes.c_longlong
     f = ctypes.c_float
+    d = ctypes.c_double
+    pp = ctypes.POINTER(ctypes.c_void_p)
+    lp = ctypes.POINTER(ctypes.c_longlong)
     hw = (ll, ll)
     # every ladder entry starts (Z, H, W, ladder, scales, K, Rmax, dense);
     # every entry ends with the stream
@@ -153,6 +156,14 @@ def entry_argtypes():
                                          p],
         # the spline's Thomas solve: (rhs, x, factors, m, W, f64)
         "thomas_sweep_launch": [p, p, p, ll, ll, i],
+        # the springs fill's K-cycle: (levels, extents, L, r, z, scratch,
+        # scratch bytes, omega, nsmooth, kdepth, coarse iterations, tail,
+        # tail shared bytes, f64)
+        "mg_kcycle_launch": [pp, lp, i, p, p, p, ll, d, i, i, i, i, ll, i],
+        # its stages alone: (level, extents, r, x, xc, Wc, omega, mode,
+        # sweep, out, f64) and (level, extents, r, x, uc, Hc, Wc, rc, f64)
+        "mg_smooth_launch": [pp, lp, p, p, p, ll, d, i, i, p, i],
+        "mg_restrict_launch": [pp, lp, p, p, p, ll, ll, p, i],
     }
     return {name: [*argtypes, p] for name, argtypes in entries.items()}
 
@@ -170,4 +181,9 @@ def load():
     i = ctypes.c_int
     lib.ladder_tile_smem_bytes.argtypes = [i, i, i]
     lib.ladder_tile_smem_bytes.restype = ctypes.c_longlong
+    # (extents, L, tail, kdepth, tail shared bytes, f64) -> the K-cycle's
+    # scratch bytes
+    lib.mg_scratch_bytes.argtypes = [ctypes.POINTER(ctypes.c_longlong), i,
+                                     i, i, ctypes.c_longlong, i]
+    lib.mg_scratch_bytes.restype = ctypes.c_longlong
     return lib

@@ -21,27 +21,32 @@ flag back every ``check_every`` iterations only: each read waits for the
 device.  ``inpaint_nans_by_springs(return_info=True)`` reports the
 iterations and those host syncs; while a ``torch.profiler`` profile is
 open each springs fill is the span ``inpaint.springs`` with the same two
-counts, how the fill ran (``graph``) and its graph replays as its
-``attr``.
+counts, how the fill ran (``graph``), its graph replays and where its
+K-cycle ran (``kcycle``) as its ``attr``.
 
 A multigrid iteration is thousands of small kernels, which on a CUDA
 device the host issues more slowly than the card runs them.  There the
 springs fill runs its CG as two CUDA graphs per grid shape, captured at
 the shape's first fill and replayed by every later one (``_GRAPHS``):
 the same kernels in the same order, so the same bits as the eager loop,
-with one graph launch and one flag read an iteration.
+with one graph launch and one flag read an iteration.  The K-cycle itself
+runs there as the hand-written kernels of ``csrc/multigrid_kcycle.cu``
+(``_kcycle_cuda``), about a hundred launches in place of the plain
+version's ~14,700 torch ops (``_kcycle_torch``, which CPU tensors run).
 """
 
 from __future__ import annotations
 
 import collections
+import ctypes
+import functools
 import threading
 import warnings
 
 import numpy as np
 import torch
 
-from .. import profiling
+from .. import _build, profiling
 from ..core.device import float_tensor, to_device
 
 __all__ = ["inpaint_nans_by_springs", "inpaint_nans_by_fda",
@@ -323,15 +328,33 @@ def _safe_div(num, den):
 
 
 def _kcycle(r, levels, l, omega=0.9, nsmooth=2, kdepth=2,
-            coarse_iters=24):
-    """One multigrid K-cycle on the Galerkin hierarchy, the flexible-CG
-    preconditioner.
+            coarse_iters=24, ran=None):
+    """One multigrid K-cycle on the Galerkin hierarchy from level ``l``,
+    the flexible-CG preconditioner: the kernels (:func:`_kcycle_cuda`) for
+    a CUDA tensor, the plain version (:func:`_kcycle_torch`) for any
+    other.  The version that ran, "cuda" or "torch", is added to the set
+    ``ran`` where one is given."""
+    if r.is_cuda:
+        z, how = _kcycle_cuda(r, levels[l:], omega, nsmooth, kdepth,
+                              coarse_iters), "cuda"
+    else:
+        z, how = _kcycle_torch(r, levels, l, omega, nsmooth, kdepth,
+                               coarse_iters), "torch"
+    if ran is not None:
+        ran.add(how)
+    return z
+
+
+def _kcycle_torch(r, levels, l, omega=0.9, nsmooth=2, kdepth=2,
+                  coarse_iters=24):
+    """The plain version of the K-cycle, in torch ops on any device.
 
     Damped-Jacobi (ω=0.9) pre/post smoothing; at the first ``kdepth``
     level transitions the coarse problem is solved with two steps of
     flexible CG preconditioned by the next level's cycle (Notay's
     K-cycle) instead of one recursive call; below that depth, plain
-    V-recursion.
+    V-recursion.  The second step ends at its update of the coarse
+    correction: its residual, cycle and direction would go unused.
     """
     if l + 1 == len(levels):
         return _coarse_cg(r, levels[l], iters=coarse_iters)
@@ -359,25 +382,117 @@ def _kcycle(r, levels, l, omega=0.9, nsmooth=2, kdepth=2,
 
         xc = torch.zeros_like(rc)
         rr = rc
-        z = _kcycle(rr, levels, l + 1, omega, nsmooth, kdepth - 1,
-                    coarse_iters)
+        z = _kcycle_torch(rr, levels, l + 1, omega, nsmooth, kdepth - 1,
+                          coarse_iters)
         p = z
         rz = torch.sum(rr * z)
-        for _ in range(2):
+        for step in range(2):
             Ap = Ac(p)
             alpha = _safe_div(rz, torch.sum(p * Ap))
             xc = xc + alpha * p
+            if step == 1:
+                break
             r_new = rr - alpha * Ap
-            z_new = _kcycle(r_new, levels, l + 1, omega, nsmooth,
-                            kdepth - 1, coarse_iters)
+            z_new = _kcycle_torch(r_new, levels, l + 1, omega, nsmooth,
+                                  kdepth - 1, coarse_iters)
             rz_new = torch.sum(r_new * z_new)
             beta = _safe_div(rz_new - torch.sum(rr * z_new), rz)
             p = z_new + beta * p
             rr, z, rz = r_new, z_new, rz_new
     else:
-        xc = _kcycle(rc, levels, l + 1, omega, nsmooth, 0, coarse_iters)
+        xc = _kcycle_torch(rc, levels, l + 1, omega, nsmooth, 0,
+                           coarse_iters)
 
     return smooth(x + _prolong2(xc, H, W) * u)
+
+
+# the levels the kernels take (csrc/multigrid_kcycle.cu: kMaxLevels)
+_MAX_LEVELS = 40
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_optin(device):
+    """Shared memory one block may opt into on ``device`` (232,448 bytes
+    on an H100), as ``csrc/multigrid_kcycle.cu:launch_tail`` opts in."""
+    return torch.cuda.get_device_properties(
+        device).shared_memory_per_block_optin
+
+
+def _kcycle_plan(shapes, itemsize, kdepth, smem_max):
+    """Where the K-cycle kernels' one-block tail starts: the first level,
+    at or below the flexible-CG levels (the tail runs plain V-recursion),
+    whose working set and every coarser level's fit in ``smem_max`` bytes
+    of a block's shared memory: eight arrays a level and the coarse CG's
+    A(p) (``csrc/multigrid_kcycle.cu:tail_elems``).  Returns (level,
+    bytes); bytes 0 where not even the coarsest level fits, and the tail
+    works in global memory."""
+    n = [h * w for h, w in shapes]
+    L = len(n)
+    for t in range(max(0, min(kdepth, L - 2)), L):
+        nbytes = (8 * sum(n[t:]) + n[-1]) * itemsize
+        if nbytes <= smem_max:
+            return t, nbytes
+    return L - 1, 0
+
+
+def _kcycle_cuda(r, levels, omega=0.9, nsmooth=2, kdepth=2,
+                 coarse_iters=24):
+    """:func:`_kcycle_torch` from level 0 of ``levels`` as the hand-written
+    kernels of ``csrc/multigrid_kcycle.cu``: one C call issues the
+    recursion's launches (85 at SMRF's 2001^2 float32 hierarchy) on the
+    current stream, with scratch from ``torch.empty`` (the graph's pool
+    under capture), and does not synchronise.  ``r`` and every level
+    tensor must be contiguous float32 or float64 CUDA tensors of one dtype
+    and device, each level the 2x2 coarsening of the one above; anything
+    else raises.  It equals the plain version to rounding: its dot
+    products sum in another order.  ``_kcycle_cuda.launches`` counts the
+    applications of this process."""
+    if r.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"_kcycle_cuda takes float32 or float64, not "
+                         f"{r.dtype}")
+    if any(t.dtype != r.dtype or t.device != r.device
+           or not t.is_contiguous() for lv in ([r], *levels) for t in lv):
+        raise ValueError("_kcycle_cuda needs contiguous tensors of one "
+                         "dtype and device")
+    if nsmooth < 0:
+        raise ValueError(f"_kcycle_cuda: nsmooth {nsmooth} < 0")
+    shapes = [tuple(r.shape)]
+    while len(shapes) < len(levels):
+        h, w = shapes[-1]
+        shapes.append(((h + 1) // 2, (w + 1) // 2))
+    if (r.dim() != 2 or min(r.shape) < 1
+            or not 1 <= len(levels) <= _MAX_LEVELS
+            or any(len(lv) != 4 or any(tuple(t.shape) != s for t in lv)
+                   for lv, s in zip(levels, shapes))):
+        raise ValueError("_kcycle_cuda needs a 2-D r and the Galerkin "
+                         "levels of its shape (diag, E, S, u each)")
+    if not r.is_cuda:
+        raise ValueError("_kcycle_cuda needs a CUDA tensor, got one on "
+                         f"{r.device}; use _kcycle_torch on the CPU")
+    L = len(levels)
+    tail, smem = _kcycle_plan(shapes, r.element_size(), kdepth,
+                              _smem_optin(r.device))
+    f64 = int(r.dtype == torch.float64)
+    lev = (ctypes.c_void_p * (4 * L))(*(t.data_ptr() for lv in levels
+                                        for t in lv))
+    hw = (ctypes.c_longlong * (2 * L))(*(v for s in shapes for v in s))
+    lib = _build.load()
+    nbytes = lib.mg_scratch_bytes(hw, L, tail, kdepth, smem, f64)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=r.device)
+    z = torch.empty_like(r)
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream(r.device).cuda_stream
+        err = lib.mg_kcycle_launch(
+            lev, hw, L, r.data_ptr(), z.data_ptr(), scratch.data_ptr(),
+            nbytes, float(omega), int(nsmooth), int(kdepth),
+            int(coarse_iters), tail, smem, f64, stream)
+    if err != 0:
+        raise RuntimeError(f"mg_kcycle_launch failed: CUDA error {err}")
+    _kcycle_cuda.launches += 1
+    return z
+
+
+_kcycle_cuda.launches = 0
 
 
 class _SpringsGraphs:
@@ -397,6 +512,7 @@ class _SpringsGraphs:
         self.lock = threading.Lock()
         self.inputs = self.state = self.flag = self.graphs = None
         self.released = None   # CUDA event: the last holder's work on them
+        self.kcycle = set()    # the K-cycle versions the captures ran
 
     def load(self, unknown, deg, levels, b, x0, atol2):
         new = [unknown, deg, b, x0, atol2, *(t for lv in levels for t in lv)]
@@ -419,7 +535,7 @@ class _SpringsGraphs:
     def _precond(self, r):
         flat = self.inputs[5:]
         return _kcycle(r, [flat[i:i + 4] for i in range(0, len(flat), 4)],
-                       0)
+                       0, ran=self.kcycle)
 
     def _store(self, state):
         for dst, src in zip(self.state, state):
@@ -466,7 +582,7 @@ class _GraphCache:
         """The multigrid fill of ``A`` (on a CUDA device) through the
         graphs of its key, capturing them at the key's first fill.
         Returns (filled, iterations, host syncs, "captured" or
-        "replayed", graph replays)."""
+        "replayed", graph replays, the K-cycle versions in the graphs)."""
         key = (tuple(A.shape), A.dtype, A.device)
         with self._lock:
             g = self._entries.pop(key, None) or _SpringsGraphs()
@@ -489,7 +605,7 @@ class _GraphCache:
                                         maxiter, CHECK_EVERY_MULTIGRID)
             out = torch.where(nanmask, g.state[0], A)
             g.released = stream.record_event()
-        return out, it, syncs, how, 1 + steps
+        return out, it, syncs, how, 1 + steps, set(g.kcycle)
 
 
 _GRAPHS = _GraphCache()
@@ -503,9 +619,12 @@ def _graphs_on(device):
 
 def _springs_core(A, tol, maxiter, multiscale=True):
     """Spring-graph fill of a float tensor on its own device.  Returns
-    (filled, {"iterations", "host_syncs", "graph", "replays"}): ``graph``
-    is "captured" or "replayed" for a multigrid fill on a CUDA device
-    (``_GRAPHS``), else "eager"; ``replays`` counts the graph replays.
+    (filled, {"iterations", "host_syncs", "graph", "replays", "kcycle"}):
+    ``graph`` is "captured" or "replayed" for a multigrid fill on a CUDA
+    device (``_GRAPHS``), else "eager"; ``replays`` counts the graph
+    replays; ``kcycle`` is the K-cycle version that ``_kcycle`` ran (in
+    the graphs, the one they captured): "cuda" for the kernels, "torch"
+    for the plain version, None on the Jacobi branch.
     While a profile is open the fill is the span ``inpaint.springs``, with
     its device time and that dict as its ``attr``."""
     A = float_tensor(A)
@@ -530,7 +649,7 @@ def _springs_core(A, tol, maxiter, multiscale=True):
         x0 = unknown * mean
 
         H, W = A.shape
-        graph, replays = "eager", 0
+        graph, replays, ran = "eager", 0, set()
         if multiscale and min(H, W) >= 64:
             # multigrid-preconditioned flexible CG: iteration counts stay
             # ~O(10) whatever the diameter of the NaN regions
@@ -538,13 +657,13 @@ def _springs_core(A, tol, maxiter, multiscale=True):
             if _graphs_on(A.device):
                 # each iteration thousands of small kernels: replayed as
                 # CUDA graphs, the host launches one graph an iteration
-                out, it, syncs, graph, replays = _GRAPHS.fill(
+                out, it, syncs, graph, replays, ran = _GRAPHS.fill(
                     A, nanmask, unknown, deg, levels, b, x0,
                     _atol2(b, tol), maxiter)
             else:
                 x, it, syncs = _cg(apply_fn, b, x0,
-                                   lambda r: _kcycle(r, levels, 0), tol,
-                                   maxiter, True, CHECK_EVERY_MULTIGRID)
+                                   lambda r: _kcycle(r, levels, 0, ran=ran),
+                                   tol, maxiter, True, CHECK_EVERY_MULTIGRID)
                 out = torch.where(nanmask, x, A)
         else:
             inv_deg = torch.where(deg > 0, 1.0 / deg, 0.0)
@@ -553,7 +672,7 @@ def _springs_core(A, tol, maxiter, multiscale=True):
                                maxiter, False, CHECK_EVERY_PLAIN)
             out = torch.where(nanmask, x, A)
         info = {"iterations": it, "host_syncs": syncs, "graph": graph,
-                "replays": replays}
+                "replays": replays, "kcycle": "+".join(sorted(ran)) or None}
         if sp is not None:
             sp.attr = dict(info)
         return out, info

@@ -149,7 +149,7 @@ def test_shared_body_on_fixed_state_equals_the_loop_it_replaced(shape,
     filled, info = inpaint._springs_core(A, 1e-7, 4000)
     assert torch.equal(filled, torch.where(nanmask, x_old, A))
     assert info == {"iterations": it_old, "host_syncs": syncs_old,
-                    "graph": "eager", "replays": 0}
+                    "graph": "eager", "replays": 0, "kcycle": "torch"}
     if case != "holes":
         assert it_old == 0 and syncs_old == 1
     else:

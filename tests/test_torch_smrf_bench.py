@@ -306,7 +306,7 @@ def test_a_fill_span_carries_what_return_info_reports():
     assert s.name == "inpaint.springs" and s.parent is None
     assert s.attr == {"iterations": info["iterations"],
                       "host_syncs": info["host_syncs"], "graph": "eager",
-                      "replays": 0}
+                      "replays": 0, "kcycle": "torch"}
 
 
 def test_without_a_profile_no_span_is_recorded():
@@ -482,8 +482,9 @@ def test_the_new_entries():
     spec = harness.CellSpec(CELL)
     assert {m["name"] for m in spec.metrics("end_to_end")} == {
         "raster_mpix_s.host", "job_p95_ms.host", "setup_s"}
+    # the cell's own metrics, and those later PRs appended to it
     assert [m["name"] for m in spec.metrics("per_layer")] == \
-        NEW_METRICS + LATER_METRICS
+        NEW_METRICS + LATER_METRICS + ["inpaint.kcycle_kernel_pct"]
 
 
 def test_the_configuration_is_the_published_set_and_its_traffic():
