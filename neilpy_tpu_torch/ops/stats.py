@@ -9,7 +9,11 @@ Their neighbourhood counts and sums are footprint sums
 mask, no kernel flip), in float32 as in the JAX package; the normal tail
 is ``torch.special.erfc``.  Whole-map reductions are torch sums on the
 device, so at ~10^7 values their last bits differ from XLA's, and a
-significance bin may flip only where P lies at a bin edge.
+significance bin may flip only where P lies at a bin edge.  While a
+``torch.profiler`` profile is open, ``shi_landslides`` is the root span
+``stats.shi_landslides`` (attr: the radii) and ``rasterGi`` the span
+``stats.rasterGi`` with its device time (attr: the footprint's shape
+and ``star``); ``morans_i`` and ``local_morans_i`` open none.
 
 The point-set and accuracy functions (``gi_formula``,
 ``gistar_formula``, ``score``, ``bdr``, ``chamfer_distance``,
@@ -31,6 +35,7 @@ import math
 import numpy as np
 import torch
 
+from .. import profiling
 from ..core.codes import disk
 from .surface import binary_footprint_sum, evans_curvature
 from .visibility import as_raster
@@ -102,8 +107,6 @@ def rasterGi(X, footprint=1, mode="nearest", apply_correction=False,
     processed tile-wise z-scores against the global statistics; each may
     be a number or a float32 scalar tensor on X's device (no host copy,
     so no stream sync)."""
-    X = as_raster(X, device)
-
     if np.isscalar(footprint):
         m = int(footprint)
         size = 2 * m + 1
@@ -114,6 +117,17 @@ def rasterGi(X, footprint=1, mode="nearest", apply_correction=False,
         fp = np.asarray(footprint).astype(np.float32)
         star = bool(fp[fp.shape[0] // 2, fp.shape[1] // 2] != 0)
 
+    with profiling.span("stats.rasterGi") as sp:
+        if sp is not None:
+            sp.attr = {"footprint": fp.shape, "star": star}
+        X = as_raster(X, device)
+        with profiling.device_time(X.device):
+            return _raster_gi(X, fp != 0, mode, apply_correction, star,
+                              global_mean, global_var, global_n)
+
+
+def _raster_gi(X, fp, mode, apply_correction, star, global_mean,
+               global_var, global_n):
     finite = torch.isfinite(X)
     nf = finite.sum().to(torch.float32)
     if star and global_n is not None:
@@ -133,7 +147,6 @@ def rasterGi(X, footprint=1, mode="nearest", apply_correction=False,
               torch.as_tensor(global_var, dtype=torch.float32,
                               device=X.device))
 
-    fp = fp != 0
     w_neighbors = binary_footprint_sum(finite.to(torch.float32), fp,
                                        mode=mode)
     w_neighbors = torch.round(w_neighbors)
@@ -308,13 +321,16 @@ def shi_landslides(dem, radii, cellsize=1, device=None):
     """Landslide candidate map: Gi* of tangential curvature over several
     disk radii (parity: neilpy.py:2544-2553); each radius one footprint
     Gi* on the device."""
-    k, kprof, kplan, ktan, klong, kcross = evans_curvature(dem, cellsize,
-                                                           device=device)
-    sig_bins = []
-    for radius in radii:
-        _, _, sig = rasterGi(ktan, disk(radius), star=True)
-        sig_bins.append(sig)
-    return torch.any(torch.stack(sig_bins) < -2, dim=0)
+    with profiling.span("stats.shi_landslides") as sp:
+        if sp is not None:
+            sp.attr = tuple(int(r) for r in radii)
+        k, kprof, kplan, ktan, klong, kcross = evans_curvature(
+            dem, cellsize, device=device)
+        sig_bins = []
+        for radius in radii:
+            _, _, sig = rasterGi(ktan, disk(radius), star=True)
+            sig_bins.append(sig)
+        return torch.any(torch.stack(sig_bins) < -2, dim=0)
 
 
 # ----------------------------------------------------------------------

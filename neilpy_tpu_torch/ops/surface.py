@@ -16,6 +16,12 @@ Zevenbergen & Thorne's ``D*E**2``.  uint8 products cast through
 Convolutions with weighted kernels run ``conv2d`` with TF32 off for that
 call, so an f32 product on the card keeps its 24-bit mantissa.
 
+While a ``torch.profiler`` profile is open, ``hillshade``,
+``esri_curvature`` and ``evans_curvature`` are the spans
+``surface.<name>`` (``profiling.span``) with their device time: roots
+when the caller opened none, ``evans_curvature`` a child under
+``stats.shi_landslides``.  ``binary_footprint_sum`` opens none.
+
 Parity targets (reference neilpy/neilpy.py): esri_slope 434-449, slope
 456-466, aspect 471-484, curvature 487-488, esri_curvature 520-574,
 zevenbergen_and_thorne_curvature 596-667, evans_curvature 671-737,
@@ -33,6 +39,7 @@ import math
 import numpy as np
 import torch
 
+from .. import profiling
 from ..core.codes import disk, distance_kernel
 from ..core.device import to_uint8
 from ..core.shift import ashift, gradient2d, pad_edge, pad_reflect
@@ -229,11 +236,13 @@ def hillshade(Z, cellsize=1, z_factor=1, zenith=45, azimuth=315,
               return_uint8=True, device=None):
     """ESRI hillshade from gradient slope/aspect (neilpy.py:814-824); the
     angles convert to radians in float32, as in the JAX package."""
-    Z = as_raster(Z, device)
-    gy, gx = gradient2d(Z, cellsize / z_factor)
-    gy1, gx1 = gradient2d(Z)
-    return hillshade_from_gradients(gy, gx, gy1, gx1, zenith, azimuth,
-                                    return_uint8)
+    with profiling.span("surface.hillshade"):
+        Z = as_raster(Z, device)
+        with profiling.device_time(Z.device):
+            gy, gx = gradient2d(Z, cellsize / z_factor)
+            gy1, gx1 = gradient2d(Z)
+            return hillshade_from_gradients(gy, gx, gy1, gx1, zenith,
+                                            azimuth, return_uint8)
 
 
 def multiple_illumination(Z, cellsize=1, z_factor=1,
@@ -367,8 +376,13 @@ def curvature(X, cellsize=1, device=None):
 def esri_curvature(X, cellsize=1, device=None):
     """ESRI planar curvature triple (K, K_plan, K_profile)
     (neilpy.py:520-574).  NaN neighbours take the center value."""
-    X = as_raster(X, device)
-    L = cellsize
+    with profiling.span("surface.esri_curvature"):
+        X = as_raster(X, device)
+        with profiling.device_time(X.device):
+            return _esri_curvature(X, cellsize)
+
+
+def _esri_curvature(X, L):
     n = _fill_nan_with_center(_neighbors_zt(X), X)
     Z1, Z2, Z3, Z4 = n["Z1"], n["Z2"], n["Z3"], n["Z4"]
     Z6, Z7, Z8, Z9 = n["Z6"], n["Z7"], n["Z8"], n["Z9"]
@@ -428,8 +442,13 @@ def _evans_terms(X, z, L):
 
 def evans_curvature(X, cellsize=1, device=None):
     """Evans/Wood six curvatures (neilpy.py:671-737)."""
-    X = as_raster(X, device)
-    L = cellsize
+    with profiling.span("surface.evans_curvature"):
+        X = as_raster(X, device)
+        with profiling.device_time(X.device):
+            return _evans_curvature(X, cellsize)
+
+
+def _evans_curvature(X, L):
     n = _fill_nan_wilson_gallant(_neighbors_zt(X), X)
     A, B, C, D, E = _evans_terms(X, n, L)
     K = -2 * (A + B)

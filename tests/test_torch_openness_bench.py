@@ -325,7 +325,11 @@ def _digest(x):
 def test_entries_that_were_there_are_unchanged_but_two_appended_names(kind):
     n, digest = BEFORE[kind]
     old = json.loads(json.dumps(MAN[kind][:n]))
+    # cells added after this one may be appended to a metric's list
+    later = {w["name"] for w in MAN["workloads"][6:]}
     for m in old:
+        if "workloads" in m:
+            m["workloads"] = [w for w in m["workloads"] if w not in later]
         if m["name"] in ("raster_mpix_s", "job_p95_ms"):
             assert m["workloads"][-1] == CELL
             m["workloads"].pop()

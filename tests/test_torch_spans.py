@@ -361,6 +361,79 @@ def test_span_readers(monkeypatch, name):
 
 
 # ----------------------------------------------------------------------
+# the DEM products
+# ----------------------------------------------------------------------
+def voided(n=64):
+    Z = torch.from_numpy(dem(n))
+    Z[20:26, 30:37] = float("nan")
+    return Z
+
+
+def dem_products(Z):
+    """The DEM-products cell's job: (hillshade, ESRI's triple, the
+    landslide mask at radii (2, 3))."""
+    return (ntt.hillshade(Z, 10, device=Z.device),
+            ntt.esri_curvature(Z, 10, device=Z.device),
+            ntt.shi_landslides(Z, (2, 3), 10, device=Z.device))
+
+
+def test_the_dem_products_are_three_roots_with_the_statistics_nested():
+    Z = voided()
+    profiling.clear_spans()
+    dem_products(Z)
+    assert profiling.spans() == []
+    with cpu_profile():
+        dem_products(Z)
+    spans = profiling.spans()
+    roots = [s for s in spans if s.parent is None]
+    assert [s.name for s in roots] == ["surface.hillshade",
+                                       "surface.esri_curvature",
+                                       "stats.shi_landslides"]
+    shi = roots[2]
+    assert shi.attr == (2, 3)
+    kids = [s for s in spans if s.parent is not None]
+    assert [s.name for s in kids] == ["surface.evans_curvature",
+                                      "stats.rasterGi", "stats.rasterGi"]
+    assert all(s.parent == s.root == shi.id for s in kids)
+    assert [s.attr for s in kids[1:]] == [
+        {"footprint": (5, 5), "star": True},
+        {"footprint": (7, 7), "star": True}]
+    assert all(shi.start_ns <= s.start_ns <= s.end_ns <= shi.end_ns
+               for s in kids)
+    # CUDA events only on a card
+    assert all(s.device_ms is None for s in spans)
+
+
+@pytest.mark.parametrize("fn, kw, name, attr", [
+    ("hillshade", {"cellsize": 10}, "surface.hillshade", None),
+    ("esri_curvature", {"cellsize": 10}, "surface.esri_curvature", None),
+    ("evans_curvature", {"cellsize": 10}, "surface.evans_curvature", None),
+    ("rasterGi", {"footprint": 1}, "stats.rasterGi",
+     {"footprint": (3, 3), "star": False}),
+    ("rasterGi", {"footprint": 2, "star": True}, "stats.rasterGi",
+     {"footprint": (5, 5), "star": True})])
+def test_a_public_call_is_one_root_span(fn, kw, name, attr):
+    profiling.clear_spans()
+    with cpu_profile():
+        getattr(ntt, fn)(voided(32), device="cpu", **kw)
+    (call,) = profiling.spans()
+    assert (call.name, call.parent, call.attr) == (name, None, attr)
+
+
+@pytest.mark.parametrize("module, fn, args", [
+    ("stats", "local_morans_i", (1,)), ("stats", "morans_i", (1,)),
+    ("surface", "binary_footprint_sum", (np.ones((3, 3)),))])
+def test_the_footprint_sums_and_morans_open_no_span(module, fn, args):
+    """The mosaic's tile program runs these: its traced window records
+    no span of the DEM products."""
+    call = getattr(getattr(ntt.ops, module), fn)
+    profiling.clear_spans()
+    with cpu_profile():
+        call(voided(32), *args, device="cpu")
+    assert profiling.spans() == []
+
+
+# ----------------------------------------------------------------------
 # on the card
 # ----------------------------------------------------------------------
 @pytest.fixture
@@ -431,3 +504,26 @@ def test_the_moments_span_names_the_card_path(cuda_device):
     (moments,) = [s for s in profiling.spans()
                   if s.name == "mosaic.moments"]
     assert moments.attr == "cuda"
+
+
+@pytest.mark.cuda
+def test_the_dem_products_time_the_device(cuda_device):
+    Z = voided(1024).to(cuda_device)
+    dem_products(Z)
+    torch.cuda.synchronize()
+    profiling.clear_spans()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]):
+        dem_products(Z)
+        torch.cuda.synchronize()
+    spans = profiling.spans()
+    assert sorted(s.name for s in spans) == [
+        "stats.rasterGi", "stats.rasterGi", "stats.shi_landslides",
+        "surface.esri_curvature", "surface.evans_curvature",
+        "surface.hillshade"]
+    for s in spans:
+        if s.name == "stats.shi_landslides":
+            assert s.device_ms is None
+        else:
+            assert s.device_ms > 0
