@@ -3173,6 +3173,132 @@ def surface_timing(ntt, dev, Zd, card):
          runs=TIMED_RUNS, functions=rows)
 
 
+# Gi*'s per-pixel work beside its two footprint sums, counted as
+# portbench/systems/dem_products.py counts it (GI_RADIUS_OPS less the
+# mask's or); a footprint sum's least work is a sliding window's add and
+# subtract a footprint row
+FS_GI_OPS = 13
+FS_OPS_PER_ROW = 2
+FS_MOSAIC_SIDE = 4196          # the mosaic's tile: local Moran's 7 x 7 box
+
+
+def p_ulps(got, want):
+    """(P pixels off by one ulp, bin pixels off) of two (Z, P, bins):
+    Z must be equal bit for bit, P within an ulp, a bin off only where P
+    lies within two ulps of .1, .05 or .01 (erfcf's last bit)."""
+    (gz, gp, gs), (wz, wp, ws) = got, want
+    check(torch.equal(gz.view(torch.int32), wz.view(torch.int32)),
+          "footprint Gi: Z differs from the plain version")
+    dp = (gp.view(torch.int32).long() - wp.view(torch.int32).long()).abs()
+    nanp = torch.isnan(gp) & torch.isnan(wp)
+    check(bool(((dp <= 1) | nanp).all()), "footprint Gi: P off by > 1 ulp")
+    off = gs.view(torch.int32) != ws.view(torch.int32)
+    edge = torch.zeros_like(off)
+    for e in (.1, .05, .01):
+        edge |= (wp - e).abs() <= 2 * float(np.spacing(np.float32(e)))
+    check(not bool((off & ~edge).any()), "footprint Gi: a bin off a tie")
+    return int(((dp > 0) & ~nanp).sum()), int(off.sum())
+
+
+def footprint_sum(ntt, dev, Zd, card):
+    """Phase 15b: the footprint-statistics kernel (``csrc/footprint_sum.cu``)
+    against its plain version: Gi* of the cell's tangential curvature
+    (``shi_landslides``' input, the 8192^2 DEM with holes) over disks 5 and
+    13, the launch alone (``stats._footprint_gi_cuda`` on the moments the
+    call computes) and the whole ``rasterGi`` through the kernel and through
+    the plain twin (``stats._raster_gi_torch``); then the single-channel sum
+    of the mosaic's local Moran (7 x 7 box without its centre) on a 4196^2
+    tile (``surface._footprint_cuda`` against ``_footprint_sum_torch``).
+    Z and the sums bit for bit, P within an ulp (counted); CUDA-event
+    medians of TIMED_RUNS in turns beside the bound: the bytes once (16 a
+    pixel for Gi, 8 for a sum) or the operations, whichever is larger; and
+    the kernel's launches on the DEM path (one ``shi_landslides`` call)."""
+    from neilpy_tpu_torch.ops import stats, surface
+    Zv = torch.from_numpy(holed(Zd.cpu().numpy())).to(dev)
+    gi_launches, sum_launches = (stats._footprint_gi_cuda.launches,
+                                 surface._footprint_cuda.launches)
+    ntt.shi_landslides(Zv, (5, 13), 10)
+    torch.cuda.synchronize()
+    path = {"FS gi": stats._footprint_gi_cuda.launches - gi_launches,
+            "FS sum": surface._footprint_cuda.launches - sum_launches}
+    check(path == {"FS gi": 2, "FS sum": 0},
+          f"shi_landslides launched {path}: one Gi* launch a radius")
+    ktan = ntt.evans_curvature(Zv, 10)[3]
+    nf = torch.isfinite(ktan).sum().to(torch.float32)
+    gm, gv = stats._nanmean(ktan), stats._nanstd(ktan) ** 2
+    px = ktan.numel()
+    rows = {}
+    for r in (5, 13):
+        fp = np.asarray(ntt.disk(r)) != 0
+        args = (fp, "nearest", False, True, None, None, None)
+        got = stats._raster_gi_cuda(ktan, *args)
+        want = stats._raster_gi_torch(ktan, *args)
+        ulps, bins_off = p_ulps(got, want)
+        times = time_turns(
+            {"plain": lambda: stats._raster_gi_torch(ktan, *args),
+             "call": lambda: stats._raster_gi_cuda(ktan, *args),
+             "kernel": lambda: stats._footprint_gi_cuda(
+                 ktan, fp, "nearest", True, nf, gm, gv)},
+            lambda fn: fn())
+        ops = (2 * FS_OPS_PER_ROW * fp.shape[0] + FS_GI_OPS) * px
+        rows[f"gi disk {r}"] = fs_times(times, ops, 16 * px, list(ktan.shape))
+        rows[f"gi disk {r}"].update(p_ulp_pixels=ulps, bins_off=bins_off,
+                                    max_abs_err=float(
+                                        (got[0] - want[0]).abs().nan_to_num(
+                                            0).max()))
+    side = FS_MOSAIC_SIDE
+    X = Zv[:side, :side].contiguous()
+    box = np.ones((7, 7), bool)
+    box[3, 3] = False
+    got = surface._footprint_cuda(X, box)
+    want = surface._footprint_sum_torch(X, box, "nearest")
+    check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+          "footprint sum: the 7 x 7 box differs from the plain version")
+    times = time_turns(
+        {"plain": lambda: surface._footprint_sum_torch(X, box, "nearest"),
+         "kernel": lambda: surface._footprint_cuda(X, box)},
+        lambda fn: fn())
+    rows["sum box 7x7"] = fs_times(times, FS_OPS_PER_ROW * 7 * X.numel(),
+                                   8 * X.numel(), [side, side])
+    rows["sum box 7x7"]["max_abs_err"] = 0.0
+    emit(phase="footprint_sum", card=card, library="none",
+         launches_dem_path=path, runs=TIMED_RUNS, cases=rows)
+    return {"launches": path["FS gi"], "cases": rows}
+
+
+def fs_times(times, ops, nbytes, shape):
+    """One case of ``footprint_sum``: medians, runs, and the bound."""
+    by_ops, by_bytes = ops / PEAK_F32_OPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    out = {"shape": shape, "bound_ms": max(by_ops, by_bytes),
+           "bound_by": "operations" if by_ops > by_bytes else "bytes"}
+    for key, runs in times.items():
+        out[f"{key}_ms" if key != "kernel" else "ms"] = statistics.median(runs)
+        out[f"{key}_runs_ms"] = runs
+    out["roofline_pct"] = 100 * out["bound_ms"] / out["ms"]
+    return out
+
+
+def footprint_row(fs):
+    """The ``kernels`` line's row of the footprint-statistics kernel (FS):
+    its launches on the DEM path (one ``shi_landslides`` call, both
+    radii), its largest error against the plain version, and from
+    ``footprint_sum`` its time at disk 13 (the cell's larger radius), the
+    plain version's (the whole ``rasterGi`` through the plain twin) and its
+    bound; the other cases under ``cases``.  It replaces no TPU kernel
+    (the JAX package's footprint sums and Gi* are XLA ops) and no PyTorch
+    call computes it, so ``replaces`` and ``library_ms`` are null."""
+    top = fs["cases"]["gi disk 13"]
+    return {"name": "footprint_sum", "id": "FS", "route": "cuda",
+            "source": "neilpy_tpu_torch/csrc/footprint_sum.cu",
+            "replaces": None, "launches": fs["launches"],
+            "max_abs_err": max(c["max_abs_err"]
+                               for c in fs["cases"].values()),
+            "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "shape": top["shape"], "library_ms": None,
+            "cases": fs["cases"]}
+
+
 # ----------------------------------------------------------------------
 # BASELINE config 5: the sharded SMRF (plain torch ops on the card, none
 # of K1-K5) and the out-of-core mosaic stream (its tile program launches
@@ -3721,6 +3847,7 @@ def main():
     del Z
     phase("sharded_surface", sharded_surface, ntt, dev, Zdem)
     phase("surface_timing", surface_timing, ntt, dev, Zdem, card)
+    fs = phase("footprint_sum", footprint_sum, ntt, dev, Zdem, card)
     del Zdem
     with tempfile.TemporaryDirectory() as tmp:
         mosaic_launches = phase("mosaic_path", mosaic_path, ntt, cuda_scan,
@@ -3742,6 +3869,7 @@ def main():
                            sharded_blocks(Zd, mesh))
     kernels.append(sweep_row(smrf_counts["TS"], sweep))
     kernels.append(kcycle_row(smrf_counts["MG"], kcycle))
+    kernels.append(footprint_row(fs))
     for k in kernels:
         if codec_counts.get(k["id"]):
             k["codec_path_launches"] = codec_counts[k["id"]]

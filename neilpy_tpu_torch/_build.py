@@ -164,6 +164,14 @@ def entry_argtypes():
         # sweep, out, f64) and (level, extents, r, x, uc, Hc, Wc, rc, f64)
         "mg_smooth_launch": [pp, lp, p, p, p, ll, d, i, i, p, i],
         "mg_restrict_launch": [pp, lp, p, p, p, ll, ll, p, i],
+        # binary footprint sums, one band: (X, out, H, W, reflect, head,
+        # start, piece, accumulate, shared bytes)
+        "footprint_sum_launch": [p, p, *hw, i, p, p, p, i, ll],
+        # Gi's: (X, sum_v, sum_w, Z, P, bins, H, W, reflect, head, start,
+        # piece, accumulate, last, nf, m0, m1, star, with_p, 1 / sqrt 2,
+        # shared bytes)
+        "footprint_gi_launch": [p, p, p, p, p, p, *hw, i, p, p, p, i, i, p,
+                                p, p, i, i, f, ll],
     }
     return {name: [*argtypes, p] for name, argtypes in entries.items()}
 

@@ -7,13 +7,18 @@ and arguments plus ``device=`` last on the device functions
 Their neighbourhood counts and sums are footprint sums
 (``surface.binary_footprint_sum``: generic_filter semantics, a boolean
 mask, no kernel flip), in float32 as in the JAX package; the normal tail
-is ``torch.special.erfc``.  Whole-map reductions are torch sums on the
-device, so at ~10^7 values their last bits differ from XLA's, and a
+is ``torch.special.erfc``.  On a CUDA raster ``rasterGi``'s two
+footprint sums and its per-pixel z, p and bins are one launch of the
+hand-written kernel ``csrc/footprint_sum.cu`` (``_footprint_gi_cuda``,
+equal to the plain version ``_raster_gi_torch`` bit for bit); any other
+raster takes the plain version.  Whole-map reductions are torch sums on
+the device, so at ~10^7 values their last bits differ from XLA's, and a
 significance bin may flip only where P lies at a bin edge.  While a
 ``torch.profiler`` profile is open, ``shi_landslides`` is the root span
 ``stats.shi_landslides`` (attr: the radii) and ``rasterGi`` the span
-``stats.rasterGi`` with its device time (attr: the footprint's shape
-and ``star``); ``morans_i`` and ``local_morans_i`` open none.
+``stats.rasterGi`` with its device time (attr: the footprint's shape,
+``star`` and ``path``, the version that ran: ``cuda`` or ``torch``);
+``morans_i`` and ``local_morans_i`` open none.
 
 The point-set and accuracy functions (``gi_formula``,
 ``gistar_formula``, ``score``, ``bdr``, ``chamfer_distance``,
@@ -35,8 +40,9 @@ import math
 import numpy as np
 import torch
 
-from .. import profiling
+from .. import _build, profiling
 from ..core.codes import disk
+from . import surface
 from .surface import binary_footprint_sum, evans_curvature
 from .visibility import as_raster
 
@@ -118,16 +124,20 @@ def rasterGi(X, footprint=1, mode="nearest", apply_correction=False,
         star = bool(fp[fp.shape[0] // 2, fp.shape[1] // 2] != 0)
 
     with profiling.span("stats.rasterGi") as sp:
-        if sp is not None:
-            sp.attr = {"footprint": fp.shape, "star": star}
         X = as_raster(X, device)
+        if sp is not None:
+            sp.attr = {"footprint": fp.shape, "star": star,
+                       "path": "cuda" if X.is_cuda else "torch"}
+        gi = _raster_gi_cuda if X.is_cuda else _raster_gi_torch
         with profiling.device_time(X.device):
-            return _raster_gi(X, fp != 0, mode, apply_correction, star,
-                              global_mean, global_var, global_n)
+            return gi(X, fp != 0, mode, apply_correction, star,
+                      global_mean, global_var, global_n)
 
 
-def _raster_gi(X, fp, mode, apply_correction, star, global_mean,
-               global_var, global_n):
+def _raster_gi_torch(X, fp, mode, apply_correction, star, global_mean,
+                     global_var, global_n):
+    """The plain version of :func:`rasterGi` on a float32 raster and a
+    boolean footprint, in torch ops on any device."""
     finite = torch.isfinite(X)
     nf = finite.sum().to(torch.float32)
     if star and global_n is not None:
@@ -147,13 +157,13 @@ def _raster_gi(X, fp, mode, apply_correction, star, global_mean,
               torch.as_tensor(global_var, dtype=torch.float32,
                               device=X.device))
 
-    w_neighbors = binary_footprint_sum(finite.to(torch.float32), fp,
-                                       mode=mode)
+    w_neighbors = surface._footprint_sum_torch(finite.to(torch.float32),
+                                               fp, mode)
     w_neighbors = torch.round(w_neighbors)
     w_neighbors = torch.where(finite, w_neighbors, torch.nan)
 
-    nansum_w = binary_footprint_sum(torch.where(finite, X, 0.0), fp,
-                                    mode=mode)
+    nansum_w = surface._footprint_sum_torch(torch.where(finite, X, 0.0),
+                                            fp, mode)
     a = nansum_w - w_neighbors * gm
     if star:
         b = torch.sqrt((w_neighbors / (nf - 1)) * (nf - w_neighbors) * gv)
@@ -168,6 +178,100 @@ def _raster_gi(X, fp, mode, apply_correction, star, global_mean,
 
     P = 2.0 * _norm_sf(torch.abs(Z))
     return Z, P, significance_bins(Z, P, finite)
+
+
+def _raster_gi_cuda(X, fp, mode, apply_correction, star, global_mean,
+                    global_var, global_n):
+    """:func:`_raster_gi_torch` on a CUDA raster: the whole-map moments in
+    torch ops, as there, then both footprint sums and the z / p / bin
+    epilogue in one launch (:func:`_footprint_gi_cuda`); with
+    ``apply_correction`` the launch writes z only and torch ops finish."""
+    finite = torch.isfinite(X)
+    if star and global_n is not None:
+        nf = _scalar(global_n, X)
+    else:
+        nf = finite.sum().to(torch.float32)
+    if star:
+        m0 = _nanmean(X) if global_mean is None else _scalar(global_mean, X)
+        m1 = _nanstd(X) ** 2 if global_var is None else _scalar(global_var,
+                                                                X)
+    else:
+        m0, m1 = torch.nansum(X), torch.nansum(X ** 2)
+    Z, P, sig = _footprint_gi_cuda(X, fp, mode, star, nf, m0, m1,
+                                   with_p=not apply_correction)
+    if apply_correction:
+        Z = (Z - _nanmean(Z)) / _nanstd(Z)
+        P = 2.0 * _norm_sf(torch.abs(Z))
+        sig = significance_bins(Z, P, finite)
+    return Z, P, sig
+
+
+def _scalar(value, X):
+    """A number or a one-value tensor as a 0-d float32 tensor on X's
+    device (no copy, so no stream sync, for one already there)."""
+    return torch.as_tensor(value, dtype=torch.float32,
+                           device=X.device).reshape(())
+
+
+# the multiplier of ``z / math.sqrt(2.0)`` on the card: PyTorch's CUDA
+# division by a Python float multiplies by the reciprocal rounded on the
+# host in float32
+_INV_SQRT2 = float(np.float32(1.0) / np.float32(math.sqrt(2.0)))
+
+
+def _footprint_gi_cuda(X, fp, mode, star, nf, m0, m1, with_p=True):
+    """Gi's footprint sums and epilogue as the hand-written kernel
+    ``csrc/footprint_sum.cu``: (Z, P, bins) of the contiguous 2-D float32
+    CUDA raster ``X`` over the boolean footprint ``fp``, from the 0-d
+    float32 tensors on its device ``nf`` (the finite count) and, for Gi*
+    (``star``), ``m0`` = the mean and ``m1`` = the variance, else ``m0`` =
+    nansum(X) and ``m1`` = nansum(X ** 2); without ``with_p`` only Z (P
+    and bins None).  Equal to :func:`_raster_gi_torch` bit for bit on the
+    card.  One launch a band of ``surface._footprint_plan`` (one for a
+    footprint of at most 256 rows with runs), on the current stream, with
+    no synchronise; anything the kernel does not take raises.
+    ``_footprint_gi_cuda.launches`` counts the launches of this process."""
+    surface._cuda_raster(X, "_footprint_gi_cuda")
+    for v in (nf, m0, m1):
+        if (v.dim() != 0 or v.dtype != torch.float32
+                or v.device != X.device):
+            raise ValueError("_footprint_gi_cuda takes its scalars as 0-d "
+                             "float32 tensors on the raster's device")
+    reflect = surface._reflect(mode)
+    plan = surface._footprint_plan(fp, surface._smem_optin(X.device))
+    Z = torch.empty_like(X)
+    P = torch.empty_like(X) if with_p else None
+    sig = torch.empty_like(X) if with_p else None
+    if X.numel() == 0:
+        return Z, P, sig
+    H, W = X.shape
+    # the sums a band stores for the next, where there are two or more
+    sums = [0, 0]
+    if len(plan) > 1:
+        scratch = torch.empty((2, H, W), dtype=torch.float32,
+                              device=X.device)
+        sums = [scratch[0].data_ptr(), scratch[1].data_ptr()]
+    lib = _build.load()
+    with torch.cuda.device(X.device):
+        stream = torch.cuda.current_stream(X.device).cuda_stream
+        for k, band in enumerate(plan):
+            err = lib.footprint_gi_launch(
+                X.data_ptr(), *sums, Z.data_ptr(),
+                0 if P is None else P.data_ptr(),
+                0 if sig is None else sig.data_ptr(), H, W, reflect,
+                surface._ptr(band["head"]),
+                surface._ptr(band["start"]), surface._ptr(band["piece"]),
+                int(k > 0), int(k == len(plan) - 1), nf.data_ptr(),
+                m0.data_ptr(), m1.data_ptr(), int(star), int(with_p),
+                _INV_SQRT2, band["smem"], stream)
+            if err != 0:
+                raise RuntimeError(f"footprint_gi_launch failed: CUDA "
+                                   f"error {err}")
+            _footprint_gi_cuda.launches += 1
+    return Z, P, sig
+
+
+_footprint_gi_cuda.launches = 0
 
 
 def _lag_footprint(footprint, drop_centre):

@@ -16,6 +16,11 @@ Zevenbergen & Thorne's ``D*E**2``.  uint8 products cast through
 Convolutions with weighted kernels run ``conv2d`` with TF32 off for that
 call, so an f32 product on the card keeps its 24-bit mantissa.
 
+``binary_footprint_sum`` is the exception: on a CUDA raster it is one
+launch of the hand-written kernel ``csrc/footprint_sum.cu``
+(``_footprint_cuda``, equal to the plain version bit for bit), on any
+other the plain torch version ``_footprint_sum_torch``.
+
 While a ``torch.profiler`` profile is open, ``hillshade``,
 ``esri_curvature`` and ``evans_curvature`` are the spans
 ``surface.<name>`` (``profiling.span``) with their device time: roots
@@ -34,15 +39,18 @@ triangle_height/vip_score 1818-1845, std 2039-2047, reduce_peaks
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 
 import numpy as np
 import torch
 
-from .. import profiling
+from .. import _build, profiling
 from ..core.codes import disk, distance_kernel
 from ..core.device import to_uint8
 from ..core.shift import ashift, gradient2d, pad_edge, pad_reflect
+from .inpaint import _smem_optin
 from .visibility import as_raster
 
 __all__ = [
@@ -110,14 +118,24 @@ def _runs(fp):
 def binary_footprint_sum(X, footprint, mode="nearest", device=None):
     """Neighbourhood sum over a BINARY footprint with edge-replicate (or
     reflect) padding: ``generic_filter``-style correlation (no kernel
-    flip; footprints are taken as positioned).
-
-    The footprint decomposes into horizontal runs per row, and each run's
-    sliding sum is built from power-of-2 column partials of the padded
-    raster, shared by every run: the JAX package's decomposition with its
-    order of adds, so the sums agree with it to the last bit on the CPU."""
+    flip; footprints are taken as positioned).  On a CUDA raster the
+    kernel (:func:`_footprint_cuda`), on any other the plain version
+    (:func:`_footprint_sum_torch`); both give the same bits."""
     X = as_raster(X, device)
     fp = np.asarray(footprint) != 0
+    if X.is_cuda:
+        return _footprint_cuda(X, fp, mode)
+    return _footprint_sum_torch(X, fp, mode)
+
+
+def _footprint_sum_torch(X, fp, mode="nearest"):
+    """The plain version of :func:`binary_footprint_sum` on a float32
+    raster ``X`` and a boolean footprint ``fp``, in torch ops on any
+    device.  The footprint decomposes into horizontal runs per row, and
+    each run's sliding sum is built from power-of-2 column partials of the
+    padded raster, shared by every run: the JAX package's decomposition
+    with its order of adds, so the sums agree with it to the last bit on
+    the CPU."""
     H, W = X.shape
     Xp = _pad_footprint(X, fp.shape, mode)
     runs = _runs(fp)
@@ -146,6 +164,177 @@ def binary_footprint_sum(X, footprint, mode="nearest", device=None):
             k //= 2
         out = out + acc
     return out
+
+
+# csrc/footprint_sum.cu's tiling: a block's output columns (one a
+# thread) and rows, the footprint rows and run pieces one launch's table
+# holds, the widest span of columns it takes, the guard words around its
+# partials, and the input rows a shared-memory batch stages: the tile's
+# whole window where it fits in _FS_SMEM_TARGET bytes, else as many as
+# fit with two raw buffers, at most _FS_BATCH_ROWS
+_FS_COLS = 128
+_FS_ROWS = 32      # output rows a block
+_FS_MAX_ROWS = 256
+_FS_MAX_PIECES = 768
+_FS_MAX_SPAN = 2048
+_FS_GUARD = 4
+_FS_BATCH_ROWS = 32
+_FS_SMEM_TARGET = 224 * 1024
+_FS_LAST = 1 << 31   # a piece's flag: the last of its run
+
+
+def _run_pieces(c0, wlen):
+    """A run's power-of-two pieces from the widest down, as
+    :func:`_footprint_sum_torch` adds them: [(log2 width, offset), ...]."""
+    pieces, off, k = [], c0, 1 << (wlen.bit_length() - 1)
+    while k >= 1:
+        if wlen & k:
+            pieces.append((k.bit_length() - 1, off))
+            off += k
+        k //= 2
+    return pieces
+
+
+def _footprint_plan(fp, smem_max):
+    """The kernel's table of a boolean footprint ``fp``: one band per
+    launch, in order, each a dict with ``head`` (int32: the band's rows,
+    the raster row its first row reads from output row 0, the column
+    offset -pw, staged columns n, the column stride cs (odd), partial
+    levels, rows a shared-memory batch, the band's footprint cells,
+    pieces), ``start`` (uint16, row r's pieces start[r]:start[r+1]),
+    ``piece`` (uint32: the piece's word offset in the column-major staged
+    partials, (level * n + column offset) * cs, | _FS_LAST on a run's last
+    piece) and ``smem`` (bytes).  Rows before the first run and after the
+    last are left out; a band ends where another row would pass
+    _FS_MAX_ROWS rows or _FS_MAX_PIECES pieces.  A footprint the kernel
+    cannot take (a row of more pieces than a table holds, a span past
+    _FS_MAX_SPAN columns, a launch past ``smem_max`` bytes) raises."""
+    fp = np.asarray(fp, dtype=bool)
+    return _plan_cached(fp.shape, fp.tobytes(), int(smem_max))
+
+
+@functools.lru_cache(maxsize=64)
+def _plan_cached(shape, bits, smem_max):
+    fp = np.frombuffer(bits, dtype=bool).reshape(shape)
+    kh, kw = shape
+    rows = [[] for _ in range(kh)]   # a row's runs, each its pieces
+    for dr, c0, wlen in _runs(fp):
+        run = _run_pieces(c0, wlen)
+        rows[dr].append([(lv, off, i == len(run) - 1)
+                         for i, (lv, off) in enumerate(run)])
+    used = [dr for dr in range(kh) if rows[dr]]
+    bands = []   # (first footprint row, its rows, their pieces)
+    for dr in range(used[0], used[-1] + 1) if used else ():
+        count = sum(len(run) for run in rows[dr])
+        if count > _FS_MAX_PIECES:
+            raise ValueError(f"footprint row {dr} has {count} run pieces, "
+                             f"above the kernel's {_FS_MAX_PIECES}")
+        if (not bands or len(bands[-1][1]) == _FS_MAX_ROWS
+                or bands[-1][2] + count > _FS_MAX_PIECES):
+            bands.append((dr, [], 0))
+        r0, band, pieces = bands[-1]
+        bands[-1] = (r0, band + [rows[dr]], pieces + count)
+    if not bands:
+        bands.append((0, [], 0))
+
+    plan = []
+    for r0, band, _ in bands:
+        pieces = [pc for row in band for run in row for pc in run]
+        span = max((off + (1 << lv) for lv, off, _ in pieces), default=1)
+        if span > _FS_MAX_SPAN:
+            raise ValueError(f"footprint spans {span} columns, above the "
+                             f"kernel's {_FS_MAX_SPAN}")
+        levels = 1 + max((lv for lv, _, _ in pieces), default=0)
+        n = _FS_COLS + span - 1
+        nr = _FS_ROWS + len(band) - 1 if band else 1
+        rb = nr
+        if _fs_smem(levels, n, rb, nr) > _FS_SMEM_TARGET:
+            rb = min(_FS_BATCH_ROWS, nr - 1)
+            while rb > 1 and _fs_smem(levels, n, rb, nr) > _FS_SMEM_TARGET:
+                rb -= 1
+        smem = _fs_smem(levels, n, rb, nr)
+        if smem > smem_max:
+            raise ValueError(f"footprint of {kh} x {kw} needs {smem} bytes "
+                             f"of shared memory, above the {smem_max} a "
+                             f"block may use")
+        cs = rb | 1
+        start = np.cumsum([0] + [sum(len(run) for run in row)
+                                 for row in band]).astype(np.uint16)
+        piece = np.array([(lv * n + off) * cs | (_FS_LAST if last else 0)
+                          for lv, off, last in pieces], dtype=np.uint32)
+        cells = int(fp[r0:r0 + len(band)].sum()) if band else 0
+        head = np.array([len(band), r0 - kh // 2, -(kw // 2), n, cs, levels,
+                         rb, cells, len(pieces)], dtype=np.int32)
+        plan.append({"head": head, "start": start, "piece": piece,
+                     "smem": smem})
+    return plan
+
+
+def _fs_smem(levels, n, rb, nr):
+    """Shared memory of a launch that stages ``rb`` of a tile's ``nr``
+    input rows a batch: the guards, the partials (levels x n columns x an
+    odd column stride, cs) and the raw rows, one buffer where the batch is
+    the whole window, else two (the one in use and the next, arriving)."""
+    cs = rb | 1
+    return 4 * (2 * _FS_GUARD + levels * n * cs
+                + (1 if rb >= nr else 2) * rb * n)
+
+
+def _reflect(mode):
+    """The kernel's padding flag of ``mode``: 0 'nearest', 1 'reflect'."""
+    if mode not in ("nearest", "reflect"):
+        raise ValueError(f"unsupported mode {mode}")
+    return int(mode == "reflect")
+
+
+def _cuda_raster(X, who):
+    """Refuse what the footprint kernels do not take: anything but a
+    contiguous 2-D float32 CUDA tensor."""
+    if X.dim() != 2 or X.dtype != torch.float32:
+        raise ValueError(f"{who} takes a 2-D float32 raster, not "
+                         f"{X.dtype} of shape {tuple(X.shape)}")
+    if not X.is_contiguous():
+        raise ValueError(f"{who} needs a contiguous raster")
+    if not X.is_cuda:
+        raise ValueError(f"{who} needs a CUDA tensor, got one on "
+                         f"{X.device}; the plain torch version runs others")
+
+
+def _ptr(a):
+    return ctypes.c_void_p(a.ctypes.data)
+
+
+def _footprint_cuda(X, fp, mode="nearest"):
+    """:func:`_footprint_sum_torch` as the hand-written kernel
+    ``csrc/footprint_sum.cu``, equal to it bit for bit on the card: one
+    launch a band of :func:`_footprint_plan` (one for a footprint of at
+    most 256 rows with runs), on the current stream, with no synchronise.
+    ``X`` must be a contiguous 2-D float32 CUDA tensor; anything else, or
+    a footprint the kernel cannot take, raises.
+    ``_footprint_cuda.launches`` counts the launches of this process."""
+    _cuda_raster(X, "_footprint_cuda")
+    reflect = _reflect(mode)
+    plan = _footprint_plan(fp, _smem_optin(X.device))
+    out = torch.empty_like(X)
+    if X.numel() == 0:
+        return out
+    H, W = X.shape
+    lib = _build.load()
+    with torch.cuda.device(X.device):
+        stream = torch.cuda.current_stream(X.device).cuda_stream
+        for k, band in enumerate(plan):
+            err = lib.footprint_sum_launch(
+                X.data_ptr(), out.data_ptr(), H, W, reflect,
+                _ptr(band["head"]), _ptr(band["start"]), _ptr(band["piece"]),
+                int(k > 0), band["smem"], stream)
+            if err != 0:
+                raise RuntimeError(f"footprint_sum_launch failed: CUDA "
+                                   f"error {err}")
+            _footprint_cuda.launches += 1
+    return out
+
+
+_footprint_cuda.launches = 0
 
 
 # ----------------------------------------------------------------------

@@ -85,10 +85,13 @@ def test_run_cell_is_correct_at_a_small_size(tracing):
                                  "limit": v} for k, v in LIMITS.items()}
     names = set(out["metrics"])
     if tracing:
-        # what a CPU trace can read: no CUDA events, no kernels
+        # what a CPU trace can read: no CUDA events, no kernels; the Gi*
+        # spans say the plain torch version ran
         assert names == {"dem_products.host_ms_per_job",
-                         "device.idle_pct.dem_products"}
+                         "device.idle_pct.dem_products",
+                         "footprint.gi_kernel_pct"}
         assert out["metrics"]["dem_products.host_ms_per_job"]["value"] > 0
+        assert out["metrics"]["footprint.gi_kernel_pct"]["value"] == 0.0
     else:
         assert names == {"raster_mpix_s", "job_p95_ms", "setup_s"}
 
@@ -366,7 +369,9 @@ def test_the_new_entries():
     spec = harness.CellSpec(CELL)
     assert {m["name"] for m in spec.metrics("end_to_end")} == {
         "raster_mpix_s", "job_p95_ms", "setup_s"}
-    assert [m["name"] for m in spec.metrics("per_layer")] == NEW_METRICS
+    # the cell's own metrics, and the one a later PR appended to it
+    assert [m["name"] for m in spec.metrics("per_layer")] == \
+        NEW_METRICS + ["footprint.gi_kernel_pct"]
 
 
 def test_the_configuration_and_its_traffic():

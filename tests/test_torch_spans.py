@@ -396,8 +396,8 @@ def test_the_dem_products_are_three_roots_with_the_statistics_nested():
                                       "stats.rasterGi", "stats.rasterGi"]
     assert all(s.parent == s.root == shi.id for s in kids)
     assert [s.attr for s in kids[1:]] == [
-        {"footprint": (5, 5), "star": True},
-        {"footprint": (7, 7), "star": True}]
+        {"footprint": (5, 5), "star": True, "path": "torch"},
+        {"footprint": (7, 7), "star": True, "path": "torch"}]
     assert all(shi.start_ns <= s.start_ns <= s.end_ns <= shi.end_ns
                for s in kids)
     # CUDA events only on a card
@@ -409,9 +409,9 @@ def test_the_dem_products_are_three_roots_with_the_statistics_nested():
     ("esri_curvature", {"cellsize": 10}, "surface.esri_curvature", None),
     ("evans_curvature", {"cellsize": 10}, "surface.evans_curvature", None),
     ("rasterGi", {"footprint": 1}, "stats.rasterGi",
-     {"footprint": (3, 3), "star": False}),
+     {"footprint": (3, 3), "star": False, "path": "torch"}),
     ("rasterGi", {"footprint": 2, "star": True}, "stats.rasterGi",
-     {"footprint": (5, 5), "star": True})])
+     {"footprint": (5, 5), "star": True, "path": "torch"})])
 def test_a_public_call_is_one_root_span(fn, kw, name, attr):
     profiling.clear_spans()
     with cpu_profile():
