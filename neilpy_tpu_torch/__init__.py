@@ -63,9 +63,20 @@ build cache of ``_build.py`` and ``_host_build.py``, libraries keyed by
 a hash of their sources.  A result on the card is a CUDA tensor:
 ``np.asarray`` of it needs ``.cpu()`` first, where a JAX array converts
 anywhere.  The package imports neither ``jax`` nor ``neilpy_tpu``.
+Its import is the span ``startup.import`` (``profiling.once``), from this
+file's first line to its last.
 """
 
+import time as _time
+
+_IMPORT_NS = _time.time_ns()
+
 __version__ = "0.1.0"
+
+from . import profiling
+
+# closed on the last line
+_IMPORT = profiling.once("startup.import", start_ns=_IMPORT_NS).__enter__()
 
 # ----- core -----------------------------------------------------------
 from .core.affine import Affine, from_origin
@@ -150,8 +161,10 @@ del _os
 
 # ----- observability ---------------------------------------------------
 from .profiling import Throughput, trace, compile_report
-from . import profiling
 
 # ----- multi-device (single-process mesh) / out-of-core --------------
 from . import dist
 from .pipelines.mosaic import mosaic_terrain_products
+
+_IMPORT.__exit__(None, None, None)
+del _time, _IMPORT_NS, _IMPORT

@@ -8,6 +8,12 @@ included, so a build takes seconds.  The library lands in
 hash of the sources (``*.cu`` and the shared ``*.cuh``) and flags, so an
 edit to a source rebuilds it and an unchanged tree reuses it.
 
+Each step is a span of ``profiling.once``, recorded in every process:
+``build.library`` around ``load`` (attr ``library`` "cuda" and ``built``),
+with children ``build.hash`` (the sources' hash), ``build.compile``
+(nvcc, only when it runs) and ``build.load`` (``ctypes`` and the C
+entries' declarations).
+
 Flags: ``-gencode arch=compute_90a,code=sm_90a`` (Hopper), ``-O3``,
 ``-fmad=false`` so no multiply-add is contracted into an FMA (the kernels
 must round like their plain PyTorch versions), and never
@@ -26,6 +32,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+from . import profiling
 
 _PKG_DIR = Path(__file__).resolve().parent
 SOURCE_DIR = _PKG_DIR / "csrc"
@@ -83,27 +91,30 @@ def build():
     is kept beside it, in the same name with ``.log``."""
     global BUILD_SECONDS
     t0 = time.perf_counter()
-    lib = library_path()
+    with profiling.once("build.hash"):
+        lib = library_path()
     if lib.is_file():
         return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    objs = [lib.with_suffix(f".{src.stem}.{os.getpid()}.o")
-            for src in _sources()]
-    try:
-        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
-                        for src, obj in zip(_sources(), objs)])
-        log += _run_all([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
-                          *(str(o) for o in objs)]])
-    except RuntimeError:
-        tmp.unlink(missing_ok=True)
-        raise
-    finally:
-        for obj in objs:
-            obj.unlink(missing_ok=True)
-    lib.with_suffix(".log").write_text(log)
-    os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
+    with profiling.once("build.compile"):
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        objs = [lib.with_suffix(f".{src.stem}.{os.getpid()}.o")
+                for src in _sources()]
+        try:
+            log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                             str(src)]
+                            for src, obj in zip(_sources(), objs)])
+            log += _run_all([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o",
+                              str(tmp), *(str(o) for o in objs)]])
+        except RuntimeError:
+            tmp.unlink(missing_ok=True)
+            raise
+        finally:
+            for obj in objs:
+                obj.unlink(missing_ok=True)
+        lib.with_suffix(".log").write_text(log)
+        os.replace(tmp, lib)  # atomic: a concurrent loader sees all or none
     BUILD_SECONDS += time.perf_counter() - t0
     return lib
 
@@ -179,19 +190,27 @@ def entry_argtypes():
 @functools.lru_cache(maxsize=None)
 def load():
     """Build if needed, then load the library once per process and
-    declare its C entries."""
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in entry_argtypes().items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    # (halo, Rmax, K) -> the dynamic shared memory of one tile CTA
-    i = ctypes.c_int
-    lib.ladder_tile_smem_bytes.argtypes = [i, i, i]
-    lib.ladder_tile_smem_bytes.restype = ctypes.c_longlong
-    # (extents, L, tail, kdepth, tail shared bytes, f64) -> the K-cycle's
-    # scratch bytes
-    lib.mg_scratch_bytes.argtypes = [ctypes.POINTER(ctypes.c_longlong), i,
-                                     i, i, ctypes.c_longlong, i]
-    lib.mg_scratch_bytes.restype = ctypes.c_longlong
+    declare its C entries: the span ``build.library``, whose ``built``
+    says whether this call compiled."""
+    attr = {"library": "cuda", "built": False}
+    with profiling.once("build.library", attr=attr):
+        compiled = BUILD_SECONDS
+        path = build()
+        attr["built"] = BUILD_SECONDS != compiled
+        with profiling.once("build.load"):
+            lib = ctypes.CDLL(str(path))
+            for name, argtypes in entry_argtypes().items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            # (halo, Rmax, K) -> the dynamic shared memory of one tile CTA
+            i = ctypes.c_int
+            lib.ladder_tile_smem_bytes.argtypes = [i, i, i]
+            lib.ladder_tile_smem_bytes.restype = ctypes.c_longlong
+            # (extents, L, tail, kdepth, tail shared bytes, f64) -> the
+            # K-cycle's scratch bytes
+            lib.mg_scratch_bytes.argtypes = [
+                ctypes.POINTER(ctypes.c_longlong), i, i, i,
+                ctypes.c_longlong, i]
+            lib.mg_scratch_bytes.restype = ctypes.c_longlong
     return lib

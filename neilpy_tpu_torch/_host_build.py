@@ -23,6 +23,12 @@ twice as numpy's does in ``io/las.read_las`` (g++ contracts it into an
 FMA under ``-march=native`` otherwise, which moves z by one ulp on some
 points).
 
+Each library's first ``load`` in a process is the span ``build.library``
+of ``profiling.once`` (attr ``library`` the name and ``built``), with
+children ``build.hash`` (the compiler probe and the hash), ``build.compile``
+(g++, only when it runs) and ``build.load`` (``ctypes`` and the
+declarations).
+
 A failed build or load is reported once per library with
 ``warnings.warn`` (with the tail of g++'s output) and the library
 counts as unavailable: ``load`` returns None and the callers fall back
@@ -31,6 +37,7 @@ where the JAX package falls back.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import fcntl
 import hashlib
@@ -41,6 +48,8 @@ import subprocess
 import time
 import warnings
 from pathlib import Path
+
+from . import profiling
 
 _PKG_DIR = Path(__file__).resolve().parent
 SOURCE_DIR = _PKG_DIR / "native"
@@ -53,6 +62,7 @@ _LOADED = {}  # name -> ctypes.CDLL, or None after a reported failure
 # seconds this process spent compiling in ``build`` (read by
 # ``profiling.compile_report``)
 BUILD_SECONDS = 0.0
+_COMPILES = collections.Counter()  # name -> g++ runs of this process
 
 
 def cpu_signature():
@@ -103,9 +113,10 @@ def build(name):
     if name not in NAMES:
         raise ValueError(f"unknown host library {name!r}; one of {NAMES}")
     t0 = time.perf_counter()
-    cxx = _cxx()
-    flags = _flags(cxx)
-    lib = library_path(name, flags)
+    with profiling.once("build.hash"):
+        cxx = _cxx()
+        flags = _flags(cxx)
+        lib = library_path(name, flags)
     if lib.is_file():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -115,9 +126,12 @@ def build(name):
             if lib.is_file():  # another process built it meanwhile
                 return lib
             tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-            proc = subprocess.run(
-                [cxx, *flags, "-o", str(tmp), str(SOURCE_DIR / f"{name}.cpp")],
-                capture_output=True, text=True)
+            with profiling.once("build.compile"):
+                proc = subprocess.run(
+                    [cxx, *flags, "-o", str(tmp),
+                     str(SOURCE_DIR / f"{name}.cpp")],
+                    capture_output=True, text=True)
+            _COMPILES[name] += 1
             if proc.returncode != 0:
                 tmp.unlink(missing_ok=True)
                 raise RuntimeError(
@@ -133,16 +147,24 @@ def build(name):
 def load(name, declare):
     """The loaded library ``name``, built first if needed, after
     ``declare(lib)`` has set its functions' argtypes and restype; None
-    when it cannot be built or loaded (reported once)."""
+    when it cannot be built or loaded (reported once).  The first call
+    for a name is the span ``build.library``, whose ``built`` says
+    whether it ran g++."""
     if name in _LOADED:
         return _LOADED[name]
-    try:
-        lib = ctypes.CDLL(str(build(name)))
-        declare(lib)
-    except (RuntimeError, OSError, AttributeError) as e:
-        warnings.warn(f"neilpy_tpu_torch: the host library {name!r} is "
-                      f"unavailable, falling back where the package can: "
-                      f"{e}", RuntimeWarning, stacklevel=3)
-        lib = None
+    attr = {"library": name, "built": False}
+    with profiling.once("build.library", attr=attr):
+        compiles = _COMPILES[name]
+        try:
+            path = build(name)
+            attr["built"] = _COMPILES[name] != compiles
+            with profiling.once("build.load"):
+                lib = ctypes.CDLL(str(path))
+                declare(lib)
+        except (RuntimeError, OSError, AttributeError) as e:
+            warnings.warn(f"neilpy_tpu_torch: the host library {name!r} is "
+                          f"unavailable, falling back where the package "
+                          f"can: {e}", RuntimeWarning, stacklevel=3)
+            lib = None
     _LOADED[name] = lib
     return lib

@@ -704,11 +704,12 @@ def _tile_args(Z, Rmax, K, plan, **geometry):
 
 def _run_entry(Z, entry, args):
     """Call C entry ``entry`` with ``args`` and the current stream of Z's
-    device; raise on a CUDA error.  Does not synchronise."""
+    device; raise on a CUDA error.  Does not synchronise.  The entry's
+    first call in the process is the span ``first_use.launch``."""
     lib = _build.load()
     with torch.cuda.device(Z.device):
         stream = torch.cuda.current_stream(Z.device).cuda_stream
-        with profiling.device_time(Z.device):
+        with profiling.device_time(Z.device), profiling.first_launch(entry):
             err = getattr(lib, entry)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{entry} failed: CUDA error {err}")

@@ -446,7 +446,8 @@ def _kcycle_cuda(r, levels, omega=0.9, nsmooth=2, kdepth=2,
     and device, each level the 2x2 coarsening of the one above; anything
     else raises.  It equals the plain version to rounding: its dot
     products sum in another order.  ``_kcycle_cuda.launches`` counts the
-    applications of this process."""
+    applications of this process; the first is the span
+    ``first_use.launch``."""
     if r.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"_kcycle_cuda takes float32 or float64, not "
                          f"{r.dtype}")
@@ -482,10 +483,11 @@ def _kcycle_cuda(r, levels, omega=0.9, nsmooth=2, kdepth=2,
     z = torch.empty_like(r)
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
-        err = lib.mg_kcycle_launch(
-            lev, hw, L, r.data_ptr(), z.data_ptr(), scratch.data_ptr(),
-            nbytes, float(omega), int(nsmooth), int(kdepth),
-            int(coarse_iters), tail, smem, f64, stream)
+        with profiling.first_launch("mg_kcycle_launch"):
+            err = lib.mg_kcycle_launch(
+                lev, hw, L, r.data_ptr(), z.data_ptr(), scratch.data_ptr(),
+                nbytes, float(omega), int(nsmooth), int(kdepth),
+                int(coarse_iters), tail, smem, f64, stream)
     if err != 0:
         raise RuntimeError(f"mg_kcycle_launch failed: CUDA error {err}")
     _kcycle_cuda.launches += 1
@@ -570,7 +572,8 @@ class _GraphCache:
     """The ``_SpringsGraphs`` of the last ``size`` (H, W, dtype, device)
     keys filled, least recently used evicted.  An entry holds about ten
     grids of the fill's dtype and the pool of one iteration's temporaries
-    (≈ 0.4 GB at 2001² float32).  Captures run one at a time."""
+    (≈ 0.4 GB at 2001² float32).  Captures run one at a time, each the
+    span ``first_use.graph_capture`` (a key's again after an eviction)."""
 
     def __init__(self, size=4):
         self.size = size
@@ -596,7 +599,9 @@ class _GraphCache:
             g.load(unknown, deg, levels, b, x0, atol2)
             how = "replayed"
             if g.graphs is None:
-                with self._capture:
+                with self._capture, profiling.once(
+                        "first_use.graph_capture",
+                        attr={"shape": list(A.shape), "dtype": str(A.dtype)}):
                     g.capture()
                 how = "captured"
             start, step = g.graphs

@@ -103,7 +103,8 @@ def _thomas_cuda(rhs):
     ``rhs`` must be a contiguous float32 or float64 CUDA tensor of shape
     (m, ...), its trailing shape taken as W columns; anything else
     raises.  Launches on the current stream and does not synchronise;
-    ``_thomas_cuda.launches`` counts the launches of this process."""
+    ``_thomas_cuda.launches`` counts the launches of this process, and
+    the first is the span ``first_use.launch``."""
     if not rhs.is_cuda:
         raise ValueError("_thomas_cuda needs a CUDA tensor, got one on "
                          f"{rhs.device}; use _thomas_eager on the CPU")
@@ -120,9 +121,10 @@ def _thomas_cuda(rhs):
     lib = _build.load()
     with torch.cuda.device(rhs.device):
         stream = torch.cuda.current_stream(rhs.device).cuda_stream
-        err = lib.thomas_sweep_launch(
-            rhs.data_ptr(), x.data_ptr(), factors.data_ptr(), m,
-            rhs.numel() // m, int(rhs.dtype == torch.float64), stream)
+        with profiling.first_launch("thomas_sweep_launch"):
+            err = lib.thomas_sweep_launch(
+                rhs.data_ptr(), x.data_ptr(), factors.data_ptr(), m,
+                rhs.numel() // m, int(rhs.dtype == torch.float64), stream)
     if err != 0:
         raise RuntimeError(f"thomas_sweep_launch failed: CUDA error {err}")
     _thomas_cuda.launches += 1

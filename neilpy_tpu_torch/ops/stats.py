@@ -230,7 +230,8 @@ def _footprint_gi_cuda(X, fp, mode, star, nf, m0, m1, with_p=True):
     card.  One launch a band of ``surface._footprint_plan`` (one for a
     footprint of at most 256 rows with runs), on the current stream, with
     no synchronise; anything the kernel does not take raises.
-    ``_footprint_gi_cuda.launches`` counts the launches of this process."""
+    ``_footprint_gi_cuda.launches`` counts the launches of this process;
+    the first is the span ``first_use.launch``."""
     surface._cuda_raster(X, "_footprint_gi_cuda")
     for v in (nf, m0, m1):
         if (v.dim() != 0 or v.dtype != torch.float32
@@ -255,15 +256,16 @@ def _footprint_gi_cuda(X, fp, mode, star, nf, m0, m1, with_p=True):
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream(X.device).cuda_stream
         for k, band in enumerate(plan):
-            err = lib.footprint_gi_launch(
-                X.data_ptr(), *sums, Z.data_ptr(),
-                0 if P is None else P.data_ptr(),
-                0 if sig is None else sig.data_ptr(), H, W, reflect,
-                surface._ptr(band["head"]),
-                surface._ptr(band["start"]), surface._ptr(band["piece"]),
-                int(k > 0), int(k == len(plan) - 1), nf.data_ptr(),
-                m0.data_ptr(), m1.data_ptr(), int(star), int(with_p),
-                _INV_SQRT2, band["smem"], stream)
+            with profiling.first_launch("footprint_gi_launch"):
+                err = lib.footprint_gi_launch(
+                    X.data_ptr(), *sums, Z.data_ptr(),
+                    0 if P is None else P.data_ptr(),
+                    0 if sig is None else sig.data_ptr(), H, W, reflect,
+                    surface._ptr(band["head"]),
+                    surface._ptr(band["start"]), surface._ptr(band["piece"]),
+                    int(k > 0), int(k == len(plan) - 1), nf.data_ptr(),
+                    m0.data_ptr(), m1.data_ptr(), int(star), int(with_p),
+                    _INV_SQRT2, band["smem"], stream)
             if err != 0:
                 raise RuntimeError(f"footprint_gi_launch failed: CUDA "
                                    f"error {err}")

@@ -311,7 +311,8 @@ def _footprint_cuda(X, fp, mode="nearest"):
     most 256 rows with runs), on the current stream, with no synchronise.
     ``X`` must be a contiguous 2-D float32 CUDA tensor; anything else, or
     a footprint the kernel cannot take, raises.
-    ``_footprint_cuda.launches`` counts the launches of this process."""
+    ``_footprint_cuda.launches`` counts the launches of this process; the
+    first is the span ``first_use.launch``."""
     _cuda_raster(X, "_footprint_cuda")
     reflect = _reflect(mode)
     plan = _footprint_plan(fp, _smem_optin(X.device))
@@ -323,10 +324,11 @@ def _footprint_cuda(X, fp, mode="nearest"):
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream(X.device).cuda_stream
         for k, band in enumerate(plan):
-            err = lib.footprint_sum_launch(
-                X.data_ptr(), out.data_ptr(), H, W, reflect,
-                _ptr(band["head"]), _ptr(band["start"]), _ptr(band["piece"]),
-                int(k > 0), band["smem"], stream)
+            with profiling.first_launch("footprint_sum_launch"):
+                err = lib.footprint_sum_launch(
+                    X.data_ptr(), out.data_ptr(), H, W, reflect,
+                    _ptr(band["head"]), _ptr(band["start"]),
+                    _ptr(band["piece"]), int(k > 0), band["smem"], stream)
             if err != 0:
                 raise RuntimeError(f"footprint_sum_launch failed: CUDA "
                                    f"error {err}")

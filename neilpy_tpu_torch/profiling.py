@@ -24,6 +24,12 @@ Counterpart of ``neilpy_tpu/profiling.py`` on CUDA and
   the root span of the public call, optionally the device time between
   two CUDA events.  ``spans()`` reads the record, ``clear_spans()``
   empties it.  With no profile open a span is one shared null context.
+* ``once`` — a span of the same record for work a process does once per
+  key, recorded whether or not a profile is open: the package's import
+  (``startup.import``), a library's hash, compile and load
+  (``build.library`` and its children), a C entry's first launch
+  (``first_launch``: ``first_use.launch``) and a CUDA graph's capture
+  (``first_use.graph_capture``).  Never on a per-call path.
 * ``compile_report`` — the seconds a first call spends building the
   port's libraries against the rest of that call.
 """
@@ -42,10 +48,8 @@ import torch
 from torch.autograd import profiler as _autograd_profiler
 from torch.utils.flop_counter import FlopCounterMode
 
-from . import _build, _host_build
-
 __all__ = ["Throughput", "sync", "trace", "compile_report", "span",
-           "device_time", "spans", "clear_spans"]
+           "device_time", "once", "first_launch", "spans", "clear_spans"]
 
 
 def _tensors(x):
@@ -117,6 +121,8 @@ _NULL = contextlib.nullcontext()
 _RECORD = []                 # closed spans, in the order they closed
 _IDS = itertools.count(1)
 _LOCAL = threading.local()   # .stack: the calling thread's open spans
+_LAUNCHED = set()            # the C entries called in this process
+_LAUNCHED_LOCK = threading.Lock()
 
 
 def _open_spans():
@@ -141,9 +147,9 @@ def _cuda_event(device):
 
 
 class Span:
-    """One span of the record (:func:`span`): ``name``; ``start_ns`` and
-    ``end_ns`` on ``time.time_ns``'s clock, the Unix clock of the
-    profiler's own events; ``thread`` (the thread's name); ``id``;
+    """One span of the record (:func:`span`, :func:`once`): ``name``;
+    ``start_ns`` and ``end_ns`` on ``time.time_ns``'s clock, the Unix clock
+    of the profiler's own events; ``thread`` (the thread's name); ``id``;
     ``parent`` (the parent span's id, None for a root); ``root`` (the id
     of the root span, shared by every span of one public call); ``attr``
     (a detail, such as the C entry a launch called, or None); and
@@ -154,7 +160,7 @@ class Span:
                  "start_ns", "end_ns", "device_ms", "_device", "_events",
                  "_annotation")
 
-    def __init__(self, name, parent, device, attr):
+    def __init__(self, name, parent, device, attr, start_ns=None):
         stack = _open_spans()
         if parent is None and stack:
             parent = stack[-1]
@@ -164,7 +170,8 @@ class Span:
         self.root = self.id if parent is None else parent.root
         self.thread = threading.current_thread().name
         self.attr = attr
-        self.start_ns = self.end_ns = self.device_ms = None
+        self.start_ns = start_ns
+        self.end_ns = self.device_ms = None
         self._device = device
         self._events = []        # CUDA events, a (start, end) pair each
         self._annotation = None
@@ -176,7 +183,8 @@ class Span:
             # and the clock is read just after each of their stamps
             self._annotation = _annotation(self.name)
             self._annotation.__enter__()
-        self.start_ns = time.time_ns()
+        if self.start_ns is None:
+            self.start_ns = time.time_ns()
         if self._device is not None:
             self._events.append(_cuda_event(self._device))
         return self
@@ -210,12 +218,40 @@ def span(name, parent=None, device=None, attr=None):
     profiler's events and in exported traces.  ``device`` (a CUDA device;
     anything else is ignored) records a pair of timing events on its
     current stream around the block.  ``with span(...) as s`` binds the
-    span, or None when nothing is recorded."""
+    span, or None when nothing is recorded.  Work a process does once is
+    a :func:`once` span, which records with no profile open."""
     if not _autograd_profiler._is_profiler_enabled:
         return _NULL
     if device is not None and torch.device(device).type != "cuda":
         device = None
     return Span(name, parent, device, attr)
+
+
+def once(name, attr=None, start_ns=None):
+    """A :class:`Span` of the record around work the process does once
+    per key (a library's build and load, a C entry's first launch, a CUDA
+    graph's capture, the package's import), recorded whether or not a
+    profile is open: :func:`span`'s clock, parent and root rules, and on
+    the profiler's own thread its record function.  ``start_ns`` (a
+    ``time.time_ns()`` stamp) starts the span before its ``with``: the
+    package stamps its import's first line before this module can be
+    imported.  It allocates a span a call, so no per-call path opens one;
+    :func:`first_launch` guards the launch sites."""
+    return Span(name, None, None, attr, start_ns)
+
+
+def first_launch(entry):
+    """The span ``first_use.launch`` (:func:`once`, ``attr`` the entry)
+    around the first call of C entry ``entry`` in the process, whose host
+    wall takes the lazy load of the entry's kernels; for every later call
+    one shared null context after a set-membership test."""
+    if entry in _LAUNCHED:
+        return _NULL
+    with _LAUNCHED_LOCK:
+        if entry in _LAUNCHED:
+            return _NULL
+        _LAUNCHED.add(entry)
+    return once("first_use.launch", attr=entry)
 
 
 class _DeviceTime:
@@ -248,9 +284,10 @@ def device_time(device):
 
 
 def spans():
-    """The record: every span closed while a profile was open, since the
-    process started or the last :func:`clear_spans`, in the order they
-    closed (a list of :class:`Span`).  Reading it resolves each span's
+    """The record: every span closed while a profile was open and every
+    :func:`once` span, since the process started or the last
+    :func:`clear_spans`, in the order they closed (a list of
+    :class:`Span`).  Reading it resolves each span's
     CUDA events into ``device_ms``, waiting for them where the device
     has not reached them yet."""
     out = list(_RECORD)
@@ -332,6 +369,7 @@ def _counter_ready():
 
 
 def _build_seconds():
+    from . import _build, _host_build  # they import this module
     return _build.BUILD_SECONDS + _host_build.BUILD_SECONDS
 
 

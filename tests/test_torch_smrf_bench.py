@@ -443,6 +443,8 @@ NEW_METRICS = ["device.idle_pct.smrf", "smrf.launches_per_job",
 # then the spline coefficients' device time and kernel share
 LATER_METRICS = ["inpaint.graph_replay_pct", "smrf.spline_ms_per_call",
                  "spline.kernel_sweep_pct"]
+# appended to every cell: the port's start-up
+STARTUP_METRICS = ["setup.import_s", "setup.library_s", "setup.first_use_s"]
 
 
 def _digest(x):
@@ -484,7 +486,8 @@ def test_the_new_entries():
         "raster_mpix_s.host", "job_p95_ms.host", "setup_s"}
     # the cell's own metrics, and those later PRs appended to it
     assert [m["name"] for m in spec.metrics("per_layer")] == \
-        NEW_METRICS + LATER_METRICS + ["inpaint.kcycle_kernel_pct"]
+        NEW_METRICS + LATER_METRICS + ["inpaint.kcycle_kernel_pct"] \
+        + STARTUP_METRICS
 
 
 def test_the_configuration_is_the_published_set_and_its_traffic():
